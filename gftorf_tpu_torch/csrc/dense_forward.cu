@@ -1,0 +1,215 @@
+// Dense-layout tile compositing, forward, for Hopper (sm_90a).
+//
+// Replaces the TPU kernel gftorf_tpu/render/pallas_composite.py::
+// _forward_kernel (launched by composite_forward_pallas). Same function:
+// front-to-back alpha blending of up to L depth-sorted instances per tile,
+// with the output column map of pallas_composite.py:30-37:
+//   0:3 color(+bg) | 3 depth | 4:11 phasor(+bg) | 11 acc | 12 dd
+//   13 final_T | 14:17 first-sample (alpha, dist, amp)
+//   17 A_tot | 18 WZ_tot | 19 WZ2_tot | 20:26 flow (no bg) | 26:32 zero
+// and a per-instance count of contributing pixels (T, L).
+//
+// Design. The Pallas kernel is a prefix-scan form (Hillis-Steele cumprod
+// over 128-lane chunks, MXU dot products) because of the TPU's lanes.
+// Here the sequential form of the reference's renderCUDA is the simple
+// one: one block per tile, one thread per pixel, each thread running the
+// front-to-back recurrence on its pixel. The tile's instances are staged
+// through shared memory in batches of BATCH rows with a block-wide
+// cooperative load, so each row is read from device memory once per tile.
+// A warp whose pixels have all stopped skips the batch; the block leaves
+// when every pixel has stopped (__syncthreads_count) or at counts[t].
+// Per-instance pixel counts are integer adds into shared memory (one
+// atomicAdd of a warp ballot's popcount per warp and instance): integer
+// sums are exact in any order, so the result is deterministic and there
+// is no float atomicAdd anywhere.
+//
+// Semantics kept from the TPU kernel:
+//  - alpha = min(0.99, o * exp(min(power, 0))); an instance is valid when
+//    power <= 0, alpha >= 1/255, the pixel is inside the image and the
+//    lane is below counts[t] (lanes at or past the count are never read);
+//  - a pixel stops at the first valid instance whose T * (1 - alpha)
+//    falls below 1e-4, and that instance does not contribute;
+//  - color, depth and flow weigh by w = alpha * T, the 7 phasor channels
+//    by alpha * T^2;
+//  - bg is added times the frozen T, the T after the last contributing
+//    instance (pallas_composite.py:346-353, 420-421), which is the T the
+//    recurrence holds when it stops;
+//  - the dd moments are exclusive running sums across batches, kept in
+//    registers; the first contributing sample is taken once per pixel.
+//
+// Bound on the H100: the work per tile is one pass over count[t] rows of
+// 96 bytes plus 176 bytes of bg and output per pixel, against ~16 fp32
+// operations per evaluated (pixel, instance) pair and ~50 more per
+// contributing pair, none of which can use the tensor cores. At the
+// serving shapes (150 tiles of 512 pixels, L up to a few thousand) the
+// operations dominate the bytes, so the kernel is bound by the fp32 rate
+// (67 TFLOP/s); chip_smoke.py computes the exact bound for each run from
+// the data. This first version is the simple correct one: later work can
+// cull instances per warp and double-buffer the batches (cp.async/TMA).
+//
+// Built with --fmad=false so each multiply and add rounds as the plain
+// PyTorch version's elementwise ops do.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int FEAT = 24;   // packed feature columns (pack_gaussian_features)
+constexpr int BGC = 12;    // bg_tiles columns
+constexpr int OUTC = 32;   // output columns
+constexpr int BATCH = 256; // instances staged per batch: 24 KB of shared memory
+constexpr float ALPHA_EPS = 1.0f / 255.0f;
+constexpr float ALPHA_MAX = 0.99f;
+constexpr float T_STOP = 1e-4f;
+constexpr unsigned FULL = 0xffffffffu;
+
+template <bool NEED_DD, bool NEED_DIST>
+__global__ void __launch_bounds__(1024)
+dense_forward_kernel(const float* __restrict__ feat,
+                     const float* __restrict__ bg,
+                     const int* __restrict__ counts,
+                     const int* __restrict__ origins,
+                     float* __restrict__ out,
+                     float* __restrict__ contrib,
+                     int L, int tile_w, int width, int height) {
+  __shared__ float s_feat[BATCH * FEAT];
+  __shared__ int s_hits[BATCH];
+
+  const int t = blockIdx.x;
+  const int pid = threadIdx.x;
+  const int pix = blockDim.x;
+  const int lane = pid & 31;
+  const int count = min(max(counts[t], 0), L);
+  const float px = (float)origins[2 * t] + (float)(pid % tile_w);
+  const float py = (float)origins[2 * t + 1] + (float)(pid / tile_w);
+  const bool inside = (px < (float)width) && (py < (float)height);
+
+  bool done = !inside;
+  float T = 1.0f;
+  float color[3] = {0.f, 0.f, 0.f};
+  float phasor[7] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  float flow[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  float depth = 0.f, acc = 0.f;
+  float dd = 0.f, wz_run = 0.f, wz2_run = 0.f;
+  float first_alpha = 0.f, first_dist = 0.f, first_amp = 0.f;
+  bool has_first = false;
+
+  const float* tile_feat = feat + (size_t)t * L * FEAT;
+  float* tile_contrib = contrib + (size_t)t * L;
+  int base = 0;
+  for (; base < count; base += BATCH) {
+    if (__syncthreads_count(!done) == 0) break;
+    const int n = min(BATCH, count - base);
+    const float* src = tile_feat + (size_t)base * FEAT;
+    for (int i = pid; i < n * FEAT; i += pix) s_feat[i] = src[i];
+    for (int i = pid; i < n; i += pix) s_hits[i] = 0;
+    __syncthreads();
+
+    if (!__all_sync(FULL, done)) {
+      for (int j = 0; j < n; ++j) {
+        const float* g = s_feat + j * FEAT;
+        bool hit = false;
+        if (!done) {
+          const float dx = g[0] - px;
+          const float dy = g[1] - py;
+          const float power =
+              -0.5f * (g[2] * dx * dx + g[4] * dy * dy) - g[3] * dx * dy;
+          const float alpha = fminf(ALPHA_MAX, g[5] * expf(fminf(power, 0.f)));
+          if (power <= 0.f && alpha >= ALPHA_EPS) {
+            const float t_next = T * (1.0f - alpha);
+            if (t_next < T_STOP) {
+              done = true;
+            } else {
+              hit = true;
+              const float w = alpha * T;
+              const float wp = w * T;
+#pragma unroll
+              for (int k = 0; k < 3; ++k) color[k] += w * g[7 + k];
+              depth += w * g[10];
+#pragma unroll
+              for (int k = 0; k < 7; ++k) phasor[k] += wp * g[11 + k];
+#pragma unroll
+              for (int k = 0; k < 6; ++k) flow[k] += w * g[18 + k];
+              if (NEED_DD) {
+                const float z = g[6];
+                const float wz = w * z;
+                dd += w * (z * z) * acc - 2.0f * wz * wz_run + w * wz2_run;
+                wz_run += wz;
+                wz2_run += wz * z;
+              }
+              acc += w;
+              if (NEED_DIST && !has_first) {
+                first_alpha = alpha;
+                first_dist = g[10];
+                first_amp = g[13];
+                has_first = true;
+              }
+              T = t_next;
+            }
+          }
+        }
+        const unsigned ballot = __ballot_sync(FULL, hit);
+        if (lane == 0 && ballot) atomicAdd(&s_hits[j], __popc(ballot));
+      }
+    }
+    __syncthreads();
+    for (int i = pid; i < n; i += pix) tile_contrib[base + i] = (float)s_hits[i];
+  }
+  // Lanes never reached (early exit, or past the count) touched no pixel.
+  for (int i = min(base, count) + pid; i < L; i += pix) tile_contrib[i] = 0.f;
+
+  const float* b = bg + ((size_t)t * pix + pid) * BGC;
+  float o[OUTC];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) o[k] = color[k] + T * b[k];
+  o[3] = depth;
+#pragma unroll
+  for (int k = 0; k < 7; ++k) o[4 + k] = phasor[k] + T * b[4 + k];
+  o[11] = acc;
+  o[12] = NEED_DD ? dd : 0.f;
+  o[13] = T;
+  o[14] = NEED_DIST ? first_alpha : 0.f;
+  o[15] = NEED_DIST ? first_dist : 0.f;
+  o[16] = NEED_DIST ? first_amp : 0.f;
+  o[17] = acc;
+  o[18] = NEED_DD ? wz_run : 0.f;
+  o[19] = NEED_DD ? wz2_run : 0.f;
+#pragma unroll
+  for (int k = 0; k < 6; ++k) o[20 + k] = flow[k];
+#pragma unroll
+  for (int k = 26; k < OUTC; ++k) o[k] = 0.f;
+  float4* dst = reinterpret_cast<float4*>(out + ((size_t)t * pix + pid) * OUTC);
+#pragma unroll
+  for (int k = 0; k < OUTC / 4; ++k)
+    dst[k] = make_float4(o[4 * k], o[4 * k + 1], o[4 * k + 2], o[4 * k + 3]);
+}
+
+}  // namespace
+
+// C entry, bound with ctypes. feat (T, L, 24), bg (T, pix, 12),
+// counts (T,) int32, origins (T, 2) int32, out (T, pix, 32),
+// contrib (T, L); all contiguous on the current device. pix is the block
+// size: a multiple of 32, at most 1024. Launches on `stream` and returns
+// cudaGetLastError() (0 = the launch was accepted).
+extern "C" int gftorf_dense_forward(const float* feat, const float* bg,
+                                    const int* counts, const int* origins,
+                                    float* out, float* contrib, int T, int L,
+                                    int pix, int tile_w, int width, int height,
+                                    int need_dd, int need_dist, void* stream) {
+  if (pix <= 0 || pix > 1024 || pix % 32 != 0) return (int)cudaErrorInvalidValue;
+  const dim3 grid(T), block(pix);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (need_dd && need_dist)
+    dense_forward_kernel<true, true><<<grid, block, 0, s>>>(
+        feat, bg, counts, origins, out, contrib, L, tile_w, width, height);
+  else if (need_dd)
+    dense_forward_kernel<true, false><<<grid, block, 0, s>>>(
+        feat, bg, counts, origins, out, contrib, L, tile_w, width, height);
+  else if (need_dist)
+    dense_forward_kernel<false, true><<<grid, block, 0, s>>>(
+        feat, bg, counts, origins, out, contrib, L, tile_w, width, height);
+  else
+    dense_forward_kernel<false, false><<<grid, block, 0, s>>>(
+        feat, bg, counts, origins, out, contrib, L, tile_w, width, height);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,284 @@
+"""Dense-layout tile compositor: the Hopper kernel and its plain version.
+
+Counterpart of ``gftorf_tpu/render/pallas_composite.py``. The forward
+TPU kernel (``_forward_kernel``, launched by ``composite_forward_pallas``)
+becomes ``csrc/dense_forward.cu``, a CUDA C++ kernel for sm_90a bound
+with ctypes (see the note in that file for its design and bound).
+``composite_forward`` dispatches on the tensors' device: a CUDA tensor
+goes through the kernel (or the call raises), a CPU tensor through
+``composite_forward_plain``, the same function in vectorised torch.
+
+Packed feature columns (pack_gaussian_features):
+  0:2 mean2d | 2:5 conic | 5 opacity | 6 dist_ndc
+  7:10 rgb | 10 dist | 11:18 phasor | 18:24 flow
+Output block (T, PIX, 32):
+  0:3 color(+bg), 3 depth, 4:11 phasor(+bg), 11 acc, 12 dd,
+  13 final_T, 14:17 first-sample (alpha, dist, amp),
+  17 A_tot, 18 WZ_tot, 19 WZ2_tot, 20:26 flow (no bg), 26:32 zero
+(12/18/19 are zeros when config.need_dd is off, 14:17 when
+config.need_distribution is off.)
+
+This slice is forward-only: the wrapper refuses inputs that require
+gradients. The backward kernel and its autograd.Function come with the
+training slice.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple
+
+import torch
+
+from gftorf_tpu_torch.render.composite import ALPHA_EPS, ALPHA_MAX, T_STOP
+from gftorf_tpu_torch.render.settings import RasterConfig
+
+FEAT_COLS = 24
+BG_COLS = 12
+OUT_COLS = 32
+
+
+class TileOutputs(NamedTuple):
+    color: torch.Tensor  # (T, PIX, 3)
+    phasor: torch.Tensor  # (T, PIX, 7)
+    depth: torch.Tensor  # (T, PIX)
+    acc: torch.Tensor  # (T, PIX)
+    dd: torch.Tensor  # (T, PIX)
+    distribution: torch.Tensor  # (T, PIX, 3)
+    contrib_pixels: torch.Tensor  # (T, L) pixels touched per instance
+    flow: torch.Tensor  # (T, PIX, 6)
+
+
+def pack_gaussian_features(pre, flow=None) -> torch.Tensor:
+    """PreprocessOutputs -> one (P, 24) feature matrix, so the tile layout
+    needs a single instance gather. ``flow`` is an optional (P, 6) block
+    of fused scene-flow channels."""
+    P = pre.mean2d.shape[0]
+    if flow is None:
+        flow = torch.zeros((P, 6), dtype=torch.float32, device=pre.mean2d.device)
+    return torch.cat(
+        [
+            pre.mean2d,  # 0:2
+            pre.conic,  # 2:5
+            pre.opacity[:, None],  # 5
+            pre.dist_ndc[:, None],  # 6
+            pre.rgb,  # 7:10
+            pre.dist[:, None],  # 10
+            pre.phasor,  # 11:18
+            flow,  # 18:24
+        ],
+        dim=-1,
+    )
+
+
+def _bg_to_tiles(bg_map: torch.Tensor, T: int, config: RasterConfig) -> torch.Tensor:
+    """(7, H, W) background -> (T, PIX, 12) tile blocks laid out like the
+    kernel's output: bg color at 0:3, the 7 phasor channels at 4:11."""
+    th, tw = config.tile_h, config.tile_w
+    pix = th * tw
+    bg_h, bg_w = bg_map.shape[1], bg_map.shape[2]
+    gw_l = -(-bg_w // tw)
+    gh_l = T // gw_l
+    bg_p = torch.nn.functional.pad(
+        bg_map, (0, gw_l * tw - bg_w, 0, gh_l * th - bg_h)
+    )
+    bgt = (
+        bg_p.reshape(7, gh_l, th, gw_l, tw)
+        .permute(1, 3, 2, 4, 0)
+        .reshape(T, pix, 7)
+    )
+    zero = bgt.new_zeros((T, pix, 1))
+    return torch.cat([bgt[..., :3], zero, bgt, zero], dim=-1).contiguous()
+
+
+def _default_origins(T: int, config: RasterConfig, device) -> torch.Tensor:
+    """(T, 2) int32 pixel coordinates (x, y) of each tile's corner."""
+    gw = config.grid_w
+    tid = torch.arange(T, dtype=torch.int32, device=device)
+    return torch.stack(
+        [(tid % gw) * config.tile_w, (tid // gw) * config.tile_h], -1
+    ).to(torch.int32)
+
+
+def unpack_outputs(out: torch.Tensor, contrib: torch.Tensor) -> TileOutputs:
+    """Kernel output block -> TileOutputs."""
+    return TileOutputs(
+        color=out[..., 0:3],
+        phasor=out[..., 4:11],
+        depth=out[..., 3],
+        acc=out[..., 11],
+        dd=out[..., 12],
+        distribution=out[..., 14:17],
+        contrib_pixels=contrib,
+        flow=out[..., 20:26],
+    )
+
+
+def composite_forward(feat_tl, bg_tiles, counts, origins, config: RasterConfig):
+    """Composite the packed (T, L, 24) block; returns (out (T, PIX, 32),
+    contrib (T, L)). CUDA tensors run the Hopper kernel, CPU tensors the
+    plain version."""
+    if feat_tl.device.type == "cuda":
+        return composite_forward_cuda(feat_tl, bg_tiles, counts, origins, config)
+    if feat_tl.device.type == "cpu":
+        return composite_forward_plain(feat_tl, bg_tiles, counts, origins, config)
+    raise ValueError(f"no compositor for device {feat_tl.device}")
+
+
+def composite_forward_plain(feat_tl, bg_tiles, counts, origins,
+                            config: RasterConfig):
+    """The kernel's function in vectorised torch, in the prefix form of
+    pallas_composite.py:262-438: transmittance as an exclusive cumprod over
+    the lanes, the early-exit latch as ``t_incl >= T_STOP`` (t_incl is
+    monotone), and the frozen final T as the min over contributing t_incl.
+    Chunked over ``config.tile_chunk`` tiles to bound the (tiles, PIX, L)
+    temporaries."""
+    T, L, _ = feat_tl.shape
+    tw = config.tile_w
+    pix = config.tile_pixels
+    dev = feat_tl.device
+    pid = torch.arange(pix, device=dev)
+    dx_pix = (pid % tw).to(torch.float32)
+    dy_pix = (pid // tw).to(torch.float32)
+    lane = torch.arange(L, device=dev)
+    out = torch.zeros((T, pix, OUT_COLS), dtype=torch.float32, device=dev)
+    contrib = torch.zeros((T, L), dtype=torch.float32, device=dev)
+    step = max(1, config.tile_chunk)
+    for t0 in range(0, T, step):
+        sl = slice(t0, min(T, t0 + step))
+        present = lane < counts[sl, None]  # (c, L)
+        # Lanes at or past the count are garbage rows of the gather.
+        f = torch.where(present[..., None], feat_tl[sl], 0.0)  # (c, L, 24)
+        px = origins[sl, 0, None].to(torch.float32) + dx_pix  # (c, PIX)
+        py = origins[sl, 1, None].to(torch.float32) + dy_pix
+        inside = (px < config.width) & (py < config.height)
+
+        ddx = f[:, None, :, 0] - px[..., None]  # (c, PIX, L)
+        ddy = f[:, None, :, 1] - py[..., None]
+        con_a = f[:, None, :, 2]
+        con_b = f[:, None, :, 3]
+        con_c = f[:, None, :, 4]
+        power = -0.5 * (con_a * ddx * ddx + con_c * ddy * ddy) - con_b * ddx * ddy
+        alpha = torch.clamp(
+            f[:, None, :, 5] * torch.exp(torch.clamp(power, max=0.0)),
+            max=ALPHA_MAX,
+        )
+        valid = ((power <= 0.0) & (alpha >= ALPHA_EPS) & inside[..., None]
+                 & present[:, None, :])
+        q = 1.0 - torch.where(valid, alpha, 0.0)
+        cp = torch.cumprod(q, dim=-1)
+        t_excl = torch.cat([torch.ones_like(cp[..., :1]), cp[..., :-1]], dim=-1)
+        t_incl = t_excl * q
+        contribute = valid & (t_incl >= T_STOP)
+        w = torch.where(contribute, alpha * t_excl, 0.0)
+        w_p = w * t_excl
+
+        sums = w @ f[..., 7:24]  # (c, PIX, 17): rgb, dist, phasor, flow
+        sums_p = w_p @ f[..., 11:18]  # (c, PIX, 7)
+        acc = w.sum(-1)
+        t_frozen = torch.where(contribute, t_incl, 1.0).amin(-1)  # (c, PIX)
+        bg = bg_tiles[sl]
+        o = out[sl]
+        o[..., 0:3] = sums[..., 0:3] + t_frozen[..., None] * bg[..., 0:3]
+        o[..., 3] = sums[..., 3]
+        o[..., 4:11] = sums_p + t_frozen[..., None] * bg[..., 4:11]
+        o[..., 11] = acc
+        o[..., 13] = t_frozen
+        o[..., 17] = acc
+        o[..., 20:26] = sums[..., 11:17]
+
+        if config.need_dd:
+            z = f[:, None, :, 6]
+            wz = w * z
+            wz2 = wz * z
+            a_ex = torch.cumsum(w, -1) - w
+            wz_ex = torch.cumsum(wz, -1) - wz
+            wz2_ex = torch.cumsum(wz2, -1) - wz2
+            o[..., 12] = (w * (z * z) * a_ex - 2.0 * wz * wz_ex
+                          + w * wz2_ex).sum(-1)
+            o[..., 18] = wz.sum(-1)
+            o[..., 19] = wz2.sum(-1)
+
+        if config.need_distribution:
+            has = contribute.any(-1, keepdim=True)
+            first = contribute.to(torch.uint8).argmax(-1, keepdim=True)
+            stats = torch.cat(
+                [
+                    torch.gather(alpha, -1, first),
+                    torch.gather(f[..., 10], 1, first[..., 0])[..., None],
+                    torch.gather(f[..., 13], 1, first[..., 0])[..., None],
+                ],
+                dim=-1,
+            )
+            o[..., 14:17] = torch.where(has, stats, 0.0)
+
+        contrib[sl] = contribute.sum(1).to(torch.float32)
+    return out, contrib
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    from gftorf_tpu_torch.render.kernels.build import library
+
+    lib = library("dense_forward")
+    fn = lib.gftorf_dense_forward
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def composite_forward_cuda(feat_tl, bg_tiles, counts, origins,
+                           config: RasterConfig):
+    """Launch csrc/dense_forward.cu on the tensors' card; adds one to
+    ``composite_forward_cuda.launches`` per launch."""
+    T, L, C = feat_tl.shape
+    pix = config.tile_pixels
+    dev = feat_tl.device
+    for name, x in (("feat_tl", feat_tl), ("bg_tiles", bg_tiles)):
+        if x.requires_grad:
+            raise ValueError(
+                f"{name} requires grad: the compositor is forward-only in "
+                "this slice (its backward kernel comes with training)"
+            )
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernel takes CUDA tensors, got {dev}")
+    if C != FEAT_COLS:
+        raise ValueError(f"feat_tl has {C} columns, the kernel takes {FEAT_COLS}")
+    if pix > 1024 or pix % 32 != 0:
+        raise ValueError(f"tile_pixels={pix}: the kernel runs one thread per "
+                         "pixel, so it must be a multiple of 32 up to 1024")
+    expect = {
+        "feat_tl": (feat_tl, torch.float32, (T, L, FEAT_COLS)),
+        "bg_tiles": (bg_tiles, torch.float32, (T, pix, BG_COLS)),
+        "counts": (counts, torch.int32, (T,)),
+        "origins": (origins, torch.int32, (T, 2)),
+    }
+    for name, (x, dtype, shape) in expect.items():
+        if x.device != dev or x.dtype != dtype or tuple(x.shape) != shape:
+            raise ValueError(
+                f"{name}: expected {dtype} {shape} on {dev}, got "
+                f"{x.dtype} {tuple(x.shape)} on {x.device}"
+            )
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    out = torch.empty((T, pix, OUT_COLS), dtype=torch.float32, device=dev)
+    contrib = torch.empty((T, L), dtype=torch.float32, device=dev)
+    if T == 0:
+        return out, contrib
+    lib = _lib()
+    with torch.cuda.device(dev):
+        err = lib.gftorf_dense_forward(
+            feat_tl.data_ptr(), bg_tiles.data_ptr(), counts.data_ptr(),
+            origins.data_ptr(), out.data_ptr(), contrib.data_ptr(),
+            T, L, pix, config.tile_w, config.width, config.height,
+            int(config.need_dd), int(config.need_distribution),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"dense_forward kernel launch failed: cudaError {err}")
+    composite_forward_cuda.launches += 1
+    return out, contrib
+
+
+composite_forward_cuda.launches = 0
