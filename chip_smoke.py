@@ -3,36 +3,54 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one line and raising on failure:
+Phases, each printing lines tagged with its name and raising on failure:
 
-1. build    nvcc builds every kernel of the serving path from
-            gftorf_tpu_torch/csrc/ (into build/kernels/); prints the build
-            seconds, ptxas' register/shared-memory report and the card.
+1. build    nvcc builds every kernel of the serving and training paths from
+            gftorf_tpu_torch/csrc/ (into build/kernels/), one nvcc per
+            source, all at once; prints the build seconds, ptxas' register,
+            spill and shared-memory report and the card.
 2. kernels  each kernel's wrapper against its plain PyTorch version on the
             card, on seeded synthetic tile blocks: full width (150 tiles of
             16x32 pixels, L = 1024 and 2048) and a ragged 250x180 image
             with 16x16 tiles; dd/distribution gates on and off; flow
-            present and absent; per-tile counts of 0, partial and full.
-            Tolerance atol 2e-5, rtol 1e-4 on every output column;
-            contributing-pixel counts equal up to 1e-4 of the lanes (the
-            lanes whose transmittance lies within ulps of T_STOP).
-3. serve    the main path: eval_frame on a 100,000-Gaussian model (half of
-            it dynamic) with the full-width deform MLP (D=8, W=256), drawn
-            from a seed. ftorf: 8 frames at 320x240, single camera, lerp
-            frames included. torf: 4 frames, two 320x240 cameras. Cameras
-            are spiral poses. Launch counts are zeroed just before and read
-            just after; every output must be finite, no tile may overflow.
-            A 4,000-Gaussian frame of each scene must also agree with the
-            CPU path (plain compositor) at atol 1e-4, rtol 1e-3.
-4. determinism  the same frame rendered twice is bitwise equal.
-5. timing   each kernel at the serving shapes (CUDA events), its plain
-            version, and the least time the card could take for the same
-            work (bytes over 3.35 TB/s, fp32 operations over 67 TFLOP/s,
-            counted from this run's data).
+            present and absent; per-tile counts of 0, partial and full,
+            NaN in every lane past a tile's count. Forward at atol 2e-5,
+            rtol 1e-4; backward (against a cotangent drawn in [-1, 1]) at
+            atol 2e-4, rtol 1e-3. Contributing-pixel counts equal up to
+            1e-4 of the lanes (the lanes whose transmittance lies within
+            ulps of T_STOP), and backward rows past the tolerance only in
+            such lanes. Then one backward launch at L = 8192 (tile depth
+            has no shared-memory ceiling), checked the same way.
+3. serve    eval_frame on a 100,000-Gaussian model (half of it dynamic)
+            with the full-width deform MLP (D=8, W=256), drawn from a seed.
+            ftorf: 8 frames at 320x240, single camera, lerp frames
+            included. torf: 4 frames, two 320x240 cameras. Launch counts
+            are zeroed just before and read just after; every output must
+            be finite, no tile may overflow. A 4,000-Gaussian frame of each
+            scene must agree with the CPU path (plain compositor).
+4. train    train_step at full width: 100,000 live Gaussians (half dynamic)
+            in a capacity of 200,000, sorted layout, render bucket 131,072,
+            deform bucket 65,536, the StepStatic the Trainer builds from
+            configs/{ftorf,torf}.json. Targets are the port's own renders of
+            the model; then xyz is jittered. ftorf: 20 steps (iterations
+            2101-2120) over 4 frames, half of them integration frames (flow
+            on). torf: 10 steps, two cameras. Every metric and state leaf
+            finite, no overflow, the loss falls, and both kernels' launch
+            counts equal the differentiated rasterize calls.
+5. train-vs-cpu  one step of each config at 4,000 Gaussians on the card and
+            on the CPU path (plain kernels), compared with the CPU parity
+            tests' tolerances (tests/torch_port_util.py).
+6. determinism  a served frame rendered twice, and a training step run
+            twice from one state with one generator seed, are bitwise equal.
+7. timing   each kernel at the ftorf training shapes (CUDA events), its
+            plain version, and the least time the card could take for the
+            same work (bytes over 3.35 TB/s, fp32 operations over 67
+            TFLOP/s, counted from this run's data).
 
 ``python3 chip_smoke.py --profile`` adds a breakdown of a served frame by
-stage and a torch.profiler trace (under build/profile/) with the device's
-busy share; without arguments the script runs the five phases only.
+stage, the device's share of a training step under torch.profiler, and
+traces under build/profile/; without arguments the script runs the seven
+phases only.
 
 The second-to-last line is the JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or outside a checkout of
@@ -43,6 +61,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -58,8 +77,19 @@ PEAK_FP32_PER_S = 67e12
 # (offset, conic power, exp, clamps, tests) and per contributing pair
 # (transmittance, 17 weighted channels, acc), plus the dd moments.
 OPS_EVAL, OPS_CONTRIB, OPS_DD = 16, 41, 12
+# The backward (csrc/dense_backward.cu, counted from its code): the same
+# evaluation, then per contributing pair d_alpha and the 24 gradient
+# shares (79) and the adds of the per-instance sums (17); +12 with flow,
+# +20 with dd.
+OPS_CONTRIB_BWD, OPS_FLOW_BWD, OPS_DD_BWD = 96, 12, 20
 ATOL, RTOL, CONTRIB_FRAC = 2e-5, 1e-4, 1e-4
+ATOL_BWD, RTOL_BWD = 2e-4, 1e-3
 E2E_ATOL, E2E_RTOL = 1e-4, 1e-3
+# Step tolerances of tests/torch_port_util.py (card against CPU).
+METRIC_RTOL = 1e-5
+MU_ATOL_FRAC, MU_RTOL = 1e-4, 1e-3
+NU_ATOL_FRAC, NU_RTOL = 2e-4, 2e-3
+KERNELS = ("dense_forward", "dense_backward")
 
 
 def log(phase, msg):
@@ -81,11 +111,11 @@ def phase_build():
     from gftorf_tpu_torch.render.kernels import build
 
     t0 = time.perf_counter()
-    built = build.build(["dense_forward"])
+    built = build.build(KERNELS)
     secs = time.perf_counter() - t0
     for name, info in built.items():
         for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling" in line:
                 log("build", f"{name}: {line.strip()}")
     print(card_line(), flush=True)
     log("build", f"ok: {sorted(built) or 'cached'} in {secs:.2f} s")
@@ -152,6 +182,33 @@ def compare(out, contrib, ref_out, ref_contrib, what):
     return float(err.max()), lanes
 
 
+def compare_bwd(dfeat, ref, lanes_flipped, what):
+    """Backward kernel against plain: max |err|; raises past the tolerance
+    outside the lanes whose contribute latch flipped between the kernel
+    and the plain version (a flip changes that lane's gradient row)."""
+    import torch
+
+    if not bool(torch.isfinite(dfeat).all()):
+        raise AssertionError(f"{what}: backward kernel output is not finite")
+    err = (dfeat - ref).abs()
+    bad_rows = int((err > ATOL_BWD + RTOL_BWD * ref.abs()).any(-1).sum())
+    if bad_rows > lanes_flipped:
+        raise AssertionError(
+            f"{what}: {bad_rows} gradient rows past atol {ATOL_BWD} rtol "
+            f"{RTOL_BWD} (max {float(err.max()):.3g}) with {lanes_flipped} "
+            "contribute lanes flipped")
+    return float(err.max()), bad_rows
+
+
+def cotangent(rng, config, device):
+    """A (T, PIX, 32) cotangent in [-1, 1], every column set."""
+    import numpy as np
+    import torch
+
+    g = rng.uniform(-1, 1, (config.num_tiles, config.tile_pixels, 32))
+    return torch.tensor(g.astype(np.float32), device=device)
+
+
 def phase_kernels(device):
     import numpy as np
     import torch
@@ -160,7 +217,7 @@ def phase_kernels(device):
     from gftorf_tpu_torch.render.settings import RasterConfig
 
     rng = np.random.default_rng(SEED)
-    worst = 0.0
+    worst = {name: 0.0 for name in KERNELS}
     cases = []
     for gates in (True, False):
         for flow in (True, False):
@@ -172,18 +229,35 @@ def phase_kernels(device):
                                        tile_w=16, max_per_tile=512,
                                        need_dd=gates, need_distribution=gates),
                           flow))
+    # Deep tiles: the Hopper counterpart of the JAX package's VMEM compile
+    # check (render/vmem_check.py) is that this launch is accepted.
+    cases.append((RasterConfig(height=240, width=320, tile_h=16, tile_w=32,
+                               max_per_tile=8192, need_dd=False,
+                               need_distribution=False, tile_chunk=4), True))
     for cfg, flow in cases:
         args = synthetic_tiles(rng, cfg, cfg.max_per_tile, flow, device)
         out, contrib = dense.composite_forward_cuda(*args, cfg)
         ref_out, ref_contrib = dense.composite_forward_plain(*args, cfg)
+        g = cotangent(rng, cfg, device)
+        feat, bg, counts, origins = args
+        dfeat = dense.composite_backward_cuda(feat, bg, out, g, counts,
+                                              origins, cfg, flow)
+        ref_dfeat = dense.composite_backward_plain(feat, bg, out, g, counts,
+                                                   origins, cfg, flow)
         torch.cuda.synchronize()
         what = (f"{cfg.width}x{cfg.height} tiles {cfg.tile_h}x{cfg.tile_w} "
                 f"L={cfg.max_per_tile} gates={cfg.need_dd} flow={flow}")
         err, lanes = compare(out, contrib, ref_out, ref_contrib, what)
-        worst = max(worst, err)
-        log("kernels", f"{what}: max_abs_err {err:.3g}, contrib lanes "
-            f"differing {lanes} of {contrib.numel()}")
-    log("kernels", f"ok: {len(cases)} cases, max_abs_err {worst:.3g}")
+        err_b, rows_b = compare_bwd(dfeat, ref_dfeat, lanes, what)
+        worst["dense_forward"] = max(worst["dense_forward"], err)
+        worst["dense_backward"] = max(worst["dense_backward"], err_b)
+        log("kernels", f"{what}: forward max_abs_err {err:.3g}, contrib "
+            f"lanes differing {lanes} of {contrib.numel()}; backward "
+            f"max_abs_err {err_b:.3g} (max |grad| "
+            f"{float(ref_dfeat.abs().max()):.3g}), rows past tolerance "
+            f"{rows_b}")
+    log("kernels", f"ok: {len(cases)} cases, max_abs_err forward "
+        f"{worst['dense_forward']:.3g}, backward {worst['dense_backward']:.3g}")
     return worst
 
 
@@ -417,8 +491,6 @@ def serve(scene):
 
 
 def phase_serve(device):
-    import torch
-
     from gftorf_tpu_torch.render.kernels import dense
 
     scenes = [Scene("ftorf", 8, 0, device), Scene("torf", 4, 0, device)]
@@ -458,13 +530,451 @@ def phase_serve(device):
         log("serve", f"{name}: 4000-Gaussian frame on the card matches the "
             f"CPU path (max abs err {worst:.3g})")
     log("serve", f"ok: {launches} kernel launches for {calls} rasterize calls")
-    return scenes, launches
+    return scenes
 
 
 # ---------------------------------------------------------------- phase 4
 
 
-def phase_determinism(scenes):
+def tree_map(fn, tree):
+    """``fn`` over the tensors of nested tuples and dicts."""
+    import torch
+
+    if torch.is_tensor(tree):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        items = [tree_map(fn, v) for v in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+    return tree
+
+
+def tree_items(tree, prefix=""):
+    """(name, tensor) pairs of nested tuples and dicts."""
+    import torch
+
+    if torch.is_tensor(tree):
+        yield prefix, tree
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from tree_items(v, f"{prefix}.{k}")
+    elif isinstance(tree, tuple):
+        names = getattr(tree, "_fields", range(len(tree)))
+        for k, v in zip(names, tree):
+            yield from tree_items(v, f"{prefix}.{k}")
+
+
+class TrainRun:
+    """One training configuration on the card: the state of a 100k-point
+    scene (or ``n_points``) in the Trainer's sorted layout, frames whose
+    targets are the port's own renders of the unjittered model, and the
+    StepStatic that ``Trainer._static_for`` (train/loop.py:279-365)
+    builds from configs/<name>.json. ``dxyz_scale`` scales the deform
+    MLP's d_xyz head at init (near zero by default, as the reference
+    initialises it)."""
+
+    def __init__(self, name, n_points, capacity, device, random_bg=True,
+                 n_frames=4, jitter=0.02, dxyz_scale=1.0):
+        import functools
+
+        import numpy as np
+        import torch
+
+        from gftorf_tpu_torch.config import Config
+        from gftorf_tpu_torch.models.deform import (
+            DeformConfig, apply_deform, deform_params, init_deform)
+        from gftorf_tpu_torch.models.gaussians import (
+            AdamState, GaussianAux, GaussianModelState, get_motion_mask)
+        from gftorf_tpu_torch.train.evaluate import eval_frame
+        from gftorf_tpu_torch.train.step import FrameData
+
+        cfg = Config.from_json(os.path.join(ROOT, "configs", f"{name}.json"))
+        self.cfg, self.name, self.device = cfg, name, device
+        m, tpu = cfg.model, cfg.tpu
+        self.random_bg = random_bg
+        self.single = name == "ftorf"
+        self.size_c = (int(m.color_image_width * m.color_scale_factor),
+                       int(m.color_image_height * m.color_scale_factor))
+        self.size_t = (int(m.tof_image_width * m.tof_scale_factor),
+                       int(m.tof_image_height * m.tof_scale_factor))
+        self.max_per_tile, self.dup_factor = tpu.max_per_tile, tpu.dup_factor
+        self.dcfg = DeformConfig(
+            depth=m.D, width=m.W, xyz_multires=m.xyz_multires,
+            t_multires=m.t_multires, sh_degree=m.sh_degree,
+            xavier_init_dxyz=m.xavier_init_dxyz,
+            isotropic=m.isotropic_gaussians)
+        seed = SEED + 10 + (0 if self.single else 1)
+        self.n_points = n_points
+        params = serve_model(n_points, seed, device)
+        pad = capacity - n_points
+        params = type(params)(*(
+            x if x.shape[0] == 1 else
+            torch.cat([x, x.new_zeros((pad,) + x.shape[1:])]) for x in params))
+        alive = torch.arange(capacity, device=device) < n_points
+        deform = deform_params(init_deform(
+            self.dcfg, torch.Generator().manual_seed(seed), device=device))
+        deform["heads.xyz.weight"] = deform["heads.xyz.weight"] * dxyz_scale
+
+        def bucket(count):  # Trainer._update_deform_bucket (loop.py:242-266)
+            b = 1024
+            while b < int(count * 1.05) + 1:
+                b *= 2
+            return 0 if b >= capacity else b
+
+        self.render_bucket = bucket(n_points)
+        self.deform_bucket = bucket(int((get_motion_mask(params) & alive).sum()))
+
+        # Targets: the unjittered model rendered by the port at each frame.
+        self.frame_ids = [0, 2, 4, 6] if self.single else list(range(n_frames))
+        cams = spiral_cameras(n_frames, self.size_c, self.size_t, m.depth_range,
+                              seed, 0.0 if self.single else 0.05, device)
+        (wc, hc), (wt, ht) = self.size_c, self.size_t
+        mlp = functools.partial(apply_deform, deform, self.dcfg)
+        frames = []
+        for fid, (cam_c, cam_t) in zip(self.frame_ids, cams):
+            k_tof = torch.tensor(
+                [[float(cam_t.focal_x), 0, wt / 2], [0, float(cam_t.focal_y), ht / 2],
+                 [0, 0, 1]], dtype=torch.float32, device=device)
+            frame = FrameData(
+                frame_id=torch.tensor(fid, dtype=torch.int32, device=device),
+                cam_color=cam_c, cam_tof=cam_t,
+                gt_image=torch.zeros((3, hc, wc), device=device),
+                gt_phasor=torch.zeros((3, ht, wt), device=device),
+                gt_quad=torch.zeros((4, ht, wt), device=device),
+                gt_distance=torch.zeros((1, ht, wt), device=device),
+                forward_flow=torch.zeros((2, ht, wt), device=device),
+                backward_flow=torch.zeros((2, ht, wt), device=device),
+                has_forward_flow=torch.tensor(True, device=device),
+                has_backward_flow=torch.tensor(True, device=device),
+                phase_offset=torch.tensor(0.1, device=device),
+                dc_offset=torch.tensor(0.02, device=device),
+                intrinsics_tof=k_tof, intrinsics_color=k_tof)
+            while True:
+                _, out_c, out_t = eval_frame(self.static_for(2101, fid % 4 == 0),
+                                             params, mlp, alive, frame,
+                                             device=device)
+                worst = max(int(out_c.tile_max), int(out_t.tile_max))
+                if worst <= self.max_per_tile:
+                    break
+                self.grow(worst)
+            frames.append(frame._replace(
+                gt_image=out_c.color, gt_phasor=out_t.phasor[:3],
+                gt_quad=out_t.phasor[3:7], gt_distance=out_t.depth))
+        self.frames = stack_frames(frames)
+
+        rng = np.random.default_rng(seed)
+        noise = torch.tensor(rng.normal(0, jitter, (n_points, 3)),
+                             dtype=torch.float32, device=device)
+        params = params._replace(xyz=params.xyz + torch.cat(
+            [noise, noise.new_zeros((pad, 3))]))
+        zeros = type(params)(*(torch.zeros_like(x) for x in params))
+        self.model = GaussianModelState(
+            params=params,
+            aux=GaussianAux(alive=alive,
+                            **{k: torch.zeros(capacity, device=device)
+                               for k in ("max_radii2d", "xyz_grad_accum", "denom")}),
+            adam=AdamState(mu=zeros, nu=zeros, step=torch.tensor(
+                0, dtype=torch.int32, device=device)))
+        self.deform = deform
+        dz = {k: torch.zeros_like(v) for k, v in deform.items()}
+        self.deform_adam = AdamState(mu=dz, nu=dict(dz), step=torch.tensor(
+            0, dtype=torch.int32, device=device))
+        self.generator = torch.Generator(device).manual_seed(seed)
+        self.rasterize_calls = 0
+
+    def grow(self, worst):
+        """Grow max_per_tile past the deepest tile, as the Trainer does on
+        overflow (the step is then replayed)."""
+        self.max_per_tile = -(-int(worst * 1.35) // 128) * 128
+
+    def static_for(self, it, flow_frame):
+        """StepStatic as Trainer._static_for(it, flow_frame) builds it."""
+        from gftorf_tpu_torch.render.settings import RasterConfig
+        from gftorf_tpu_torch.train.step import SchedStatic, StepStatic
+
+        m, opt, tpu = self.cfg.model, self.cfg.opt, self.cfg.tpu
+        dynamic_on = m.dynamic and it > opt.warm_up
+        regions = ("dynamic",) if self.name == "torf" else ("static", "dynamic")
+        dd_on = (opt.lambda_dd != 0.0
+                 and opt.dd_loss_iter_end > opt.dd_loss_iter_start + 1)
+        flow_on = self.name == "ftorf" and opt.lambda_flow != 0.0 and dynamic_on
+
+        def raster(size, need_dd):
+            return RasterConfig(
+                height=size[1], width=size[0], tile_h=tpu.tile_h,
+                tile_w=tpu.tile_w, max_per_tile=self.max_per_tile,
+                dup_factor=self.dup_factor, sh_degree=m.sh_degree,
+                need_dd=need_dd, need_distribution=False)
+
+        return StepStatic(
+            scene_type=self.name, config_color=raster(self.size_c, False),
+            config_tof=raster(self.size_t, dd_on), deform=self.dcfg,
+            active_sh_degree=min(it // 1000, m.sh_degree),
+            total_num_views=m.total_num_views, render_regions=regions,
+            dynamic_on=dynamic_on,
+            sync_phase=opt.use_quad and opt.warm_up < it <= opt.optimize_sync_iters,
+            use_quad=opt.use_quad, use_wl1c=opt.use_wl1c,
+            use_wl1p=opt.use_wl1p, wl1p_e=opt.wl1p_e,
+            num_phasor_channels=opt.num_phasor_channels,
+            color_on=opt.lambda_color != 0.0 or 0 < opt.tof_iters < opt.iterations,
+            depth_on=opt.lambda_depth != 0.0, dd_on=dd_on,
+            oe_on=opt.use_opacity_entropy_loss, scale_on=opt.use_scale_loss,
+            mlp_reg_on=opt.lambda_mlp_reg != 0.0, flow_on=flow_on,
+            flow_frame=flow_frame if flow_on else None,
+            optimize_phase_offset=opt.optimize_phase_offset,
+            optimize_dc_offset=opt.optimize_dc_offset,
+            random_bg=self.random_bg and m.random_bg_color,
+            bg_color=(tuple(m.bg_color) if self.random_bg
+                      else (0.1, 0.2, 0.3, 0.05, 0.1, 0.15, 0.2)),
+            scene_extent=5.0, single_camera=self.single,
+            deform_sync=it <= opt.optimize_sync_iters,
+            frozen_gauss=it >= opt.densify_until_iter,
+            sched=SchedStatic.from_opt(opt, opt.lambda_color,
+                                       opt.opacity_reset_interval),
+            deform_bucket=self.deform_bucket, render_bucket=self.render_bucket,
+            compact_layout=True, deform_clip=tpu.deform_clip)
+
+    def run_step(self, it, idx, generator=None):
+        """One train_step from the current state; returns its outputs and
+        metrics by name (no state change)."""
+        from gftorf_tpu_torch.train.step import METRIC_NAMES, train_step
+
+        fid = self.frame_ids[idx]
+        static = self.static_for(it, fid % 4 == 0)
+        self.rasterize_calls += 1 if static.single_camera else 2
+        out = train_step(static, self.model, self.deform, self.deform_adam,
+                         self.frames, idx, it, generator or self.generator)
+        return out, dict(zip(METRIC_NAMES, out[3].tolist()))
+
+    def step(self, it, idx):
+        """One accepted step: replayed from the same state and random
+        stream after growing the buffers while a render overflows (the
+        Trainer's grow-and-replay, train/loop.py:532-600)."""
+        while True:
+            rng_state = self.generator.get_state()
+            out, metrics = self.run_step(it, idx)
+            if metrics["tile_overflow"] == 0 and metrics["dup_overflow"] == 0:
+                break
+            if metrics["dup_overflow"]:
+                self.dup_factor *= 2
+            if metrics["tile_overflow"]:
+                self.grow(metrics["tile_max"])
+            self.generator.set_state(rng_state)
+        self.model, self.deform, self.deform_adam = out[:3]
+        return metrics
+
+    def to_cpu(self):
+        """The same run on the CPU (the plain kernels' path)."""
+        import copy
+
+        import torch
+
+        cpu = copy.copy(self)
+        cpu.device = torch.device("cpu")
+        move = lambda t: t.cpu()  # noqa: E731
+        cpu.model = tree_map(move, self.model)
+        cpu.deform = tree_map(move, self.deform)
+        cpu.deform_adam = tree_map(move, self.deform_adam)
+        cpu.frames = tree_map(move, self.frames)
+        return cpu
+
+
+def stack_frames(frames):
+    """The stacked dataset (leading N axis) of a list of FrameData."""
+    import torch
+
+    def stack(*xs):
+        if isinstance(xs[0], tuple):
+            return type(xs[0])(*(stack(*col) for col in zip(*xs)))
+        return torch.stack(xs)
+
+    return stack(*frames)
+
+
+def phase_train(device, n_points=100_000, capacity=200_000):
+    import torch
+
+    from gftorf_tpu_torch.render.kernels import dense
+
+    runs = [(TrainRun("ftorf", n_points, capacity, device), 20),
+            (TrainRun("torf", n_points, capacity, device), 10)]
+    dense.composite_forward_cuda.launches = 0
+    dense.composite_backward_cuda.launches = 0
+    calls0 = sum(r.rasterize_calls for r, _ in runs)
+    for run, steps in runs:
+        times, losses, last = [], [], None
+        for k in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            last = run.step(2101 + k, k % len(run.frame_ids))
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+            losses.append(last["loss"])
+        for name, t in tree_items((run.model, run.deform, run.deform_adam)):
+            if t.is_floating_point() and not bool(torch.isfinite(t).all()):
+                raise AssertionError(f"{run.name}: state{name} not finite")
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"{run.name}: loss not finite: {losses}")
+        first, tail = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+        if not tail < first:
+            raise AssertionError(f"{run.name}: the loss did not fall: {losses}")
+        run.ms_per_step = statistics.median(times[1:])
+        run.steps = steps
+        log("train", f"{run.name}: {steps} steps (iterations 2101-{2100 + steps}) "
+            f"of {run.n_points} Gaussians in a capacity of "
+            f"{run.model.aux.alive.shape[0]}, "
+            f"{'1 camera' if run.single else '2 cameras'}, median "
+            f"{run.ms_per_step:.3f} ms/step after one warm-up step (all "
+            f"{[round(t, 3) for t in times]}); loss first five {first:.6g}, "
+            f"last five {tail:.6g} (all {[round(v, 6) for v in losses]}); "
+            f"num_rendered {int(last['num_rendered'])}, tile_max "
+            f"{int(last['tile_max'])}, max_per_tile {run.max_per_tile}, "
+            f"visible {int(last['visible'])}")
+    calls = sum(r.rasterize_calls for r, _ in runs) - calls0
+    fwd = dense.composite_forward_cuda.launches
+    bwd = dense.composite_backward_cuda.launches
+    if not (fwd == bwd == calls) or calls == 0:
+        raise AssertionError(f"{fwd} forward and {bwd} backward launches for "
+                             f"{calls} differentiated rasterize calls")
+    steps = sum(n for _, n in runs)
+    log("train", f"ok: {fwd} forward and {bwd} backward kernel launches for "
+        f"{calls} differentiated rasterize calls in {steps} steps (and their "
+        "replays)")
+    return [r for r, _ in runs], {"dense_forward": fwd, "dense_backward": bwd}
+
+
+# ---------------------------------------------------------------- phase 5
+
+
+def compare_steps(got, ref, lrs, deform_lr, what, hidden_frac=MU_ATOL_FRAC):
+    """One step's outputs against a reference run's, at the CPU parity
+    tests' tolerances (tests/torch_port_util.py): metrics at rtol 1e-5
+    (the integer counts of binning up to 0.1 %, as phase 3 holds integer
+    outputs), Adam mu and nu of every leaf, the densify stats and the new
+    parameters (atol 2 lr). ``hidden_frac`` replaces the mu atol fraction
+    (and scales nu's) for the deform MLP's hidden layers. Returns the
+    worst mu error over max|leaf| of the Gaussians and of the MLP."""
+    import torch
+
+    from gftorf_tpu_torch.train.step import METRIC_NAMES
+
+    (gm, gd, gda, gp), (rm, rd, rda, rp) = got, ref
+    for i, name in enumerate(METRIC_NAMES):
+        a, b = float(gp[i]), float(rp[i])
+        tol = (METRIC_RTOL if name in ("loss", "l1_color", "l1_p", "flow_l2")
+               else 1e-3) * abs(b)
+        if abs(a - b) > tol:
+            raise AssertionError(f"{what}: metric {name} {a} vs {b}")
+
+    worst = {"gaussians": 0.0, "mlp": 0.0}
+    bad = []
+    for which, frac, rtol in (("mu", MU_ATOL_FRAC, MU_RTOL),
+                              ("nu", NU_ATOL_FRAC, NU_RTOL)):
+        for (name, x), (_, y) in zip(
+                tree_items((getattr(gm.adam, which), getattr(gda, which))),
+                tree_items((getattr(rm.adam, which), getattr(rda, which)))):
+            x, y = x.cpu(), y.cpu()
+            top = float(y.abs().max())
+            if top == 0.0:
+                continue
+            f = frac * (hidden_frac / MU_ATOL_FRAC if ".hidden." in name else 1.0)
+            if bool(((x - y).abs() > f * top + rtol * y.abs()).any()):
+                bad.append(f"{which}{name}")
+            if which == "mu":
+                group = "gaussians" if name.startswith(".0.") else "mlp"
+                worst[group] = max(worst[group],
+                                   float((x - y).abs().max()) / top)
+    for name in ("denom", "max_radii2d"):
+        x, y = getattr(gm.aux, name).cpu(), getattr(rm.aux, name).cpu()
+        if int((x != y).sum()) > max(1, y.numel() // 1000):
+            bad.append(f"aux.{name} ({int((x != y).sum())} rows)")
+    x, y = gm.aux.xyz_grad_accum.cpu(), rm.aux.xyz_grad_accum.cpu()
+    if bool(((x - y).abs() > MU_ATOL_FRAC * float(y.abs().max())
+             + MU_RTOL * y.abs()).any()):
+        bad.append("aux.xyz_grad_accum")
+    for name in gm.params._fields:
+        lr = getattr(lrs, name)
+        lr = lr.cpu() if torch.is_tensor(lr) else lr
+        x, y = getattr(gm.params, name).cpu(), getattr(rm.params, name).cpu()
+        if bool(((x - y).abs() > 2 * lr + 1e-7 * y.abs()).any()):
+            bad.append(f"params.{name}")
+    for k in gd:
+        x, y = gd[k].cpu(), rd[k].cpu()
+        if bool(((x - y).abs() > 2 * deform_lr + 1e-7 * y.abs()).any()):
+            bad.append(f"deform.{k}")
+    if bad:
+        raise AssertionError(f"{what}: past tolerance: {bad}; worst mu "
+                             f"error / max|leaf| {worst}")
+    return worst
+
+
+class plain_compositor:
+    """Within the block, the compositor runs its plain versions on the
+    card too (the dispatchers that DenseComposite calls are swapped), so a
+    step can be compared with and without the kernels on one device."""
+
+    def __enter__(self):
+        from gftorf_tpu_torch.render.kernels import dense
+
+        self.saved = dense.composite_forward, dense.composite_backward
+        dense.composite_forward = dense.composite_forward_plain
+        dense.composite_backward = dense.composite_backward_plain
+
+    def __exit__(self, *exc):
+        from gftorf_tpu_torch.render.kernels import dense
+
+        dense.composite_forward, dense.composite_backward = self.saved
+
+
+# The deform MLP's hidden-layer gradients on the card and on the CPU differ
+# by up to ~1.5e-3 of the leaf's max (measured by this phase on an H100,
+# also with the plain compositor on the card, so not from the kernels):
+# the products of eight ReLU layers round differently in cuBLAS and the
+# CPU's BLAS, and a pre-activation within rounding of zero flips its ReLU.
+# Those layers are held at atol 5e-3 * max|leaf| between card and CPU;
+# everything else, and the kernels against the plain versions on the
+# card, at the CPU tests' tolerances.
+HIDDEN_CARD_CPU_FRAC = 5e-3
+
+
+def phase_train_vs_cpu(device, n_points=4000, capacity=10_000):
+    import torch
+
+    from gftorf_tpu_torch.train.step import _deform_lr_at, _gaussian_lrs_at
+
+    # A constant bg (the random streams of the card and the CPU differ),
+    # and a d_xyz head large enough that the flow vectors, differences of
+    # two deformations, stand well above the rounding of the MLP's
+    # products (as the CPU parity tests draw their deform heads).
+    for name in ("ftorf", "torf"):
+        run = TrainRun(name, n_points, capacity, device, random_bg=False,
+                       dxyz_scale=1000.0)
+        while True:  # grow the buffers until the step does not overflow
+            out, m = run.run_step(2101, 0)
+            if m["tile_overflow"] == 0 and m["dup_overflow"] == 0:
+                break
+            run.grow(m["tile_max"])
+        with plain_compositor():
+            plain, _ = run.run_step(2101, 0)
+        ref, _ = run.to_cpu().run_step(2101, 0, torch.Generator().manual_seed(0))
+        static = run.static_for(2101, True)
+        lrs, d_lr = _gaussian_lrs_at(static, 2101), _deform_lr_at(static, 2101)
+        k = compare_steps(out, plain, lrs, d_lr, f"{name} kernels vs plain")
+        c = compare_steps(out, ref, lrs, d_lr, f"{name} card vs cpu",
+                          hidden_frac=HIDDEN_CARD_CPU_FRAC)
+        log("train-vs-cpu", f"{name}: one step of {n_points} Gaussians "
+            f"(loss {m['loss']:.6g}); kernels vs plain compositor on the "
+            f"card: worst mu error / max|leaf| {k['gaussians']:.3g} "
+            f"(Gaussians), {k['mlp']:.3g} (deform MLP); card vs CPU path: "
+            f"{c['gaussians']:.3g}, {c['mlp']:.3g}")
+    log("train-vs-cpu", "ok")
+
+
+# ---------------------------------------------------------------- phase 6
+
+
+def phase_determinism(scenes, runs):
     import torch
 
     for s in scenes:
@@ -473,10 +983,22 @@ def phase_determinism(scenes):
         diff = [k for k in a if not torch.equal(a[k], b[k])]
         if diff:
             raise AssertionError(f"{s.name}: not bitwise repeatable: {diff}")
-    log("determinism", f"ok: {len(a)} outputs bitwise equal on re-render")
+    log("determinism", f"ok: {len(a)} outputs of a served frame bitwise equal "
+        "on re-render")
+    for run in runs:
+        outs = [dict(tree_items(run.run_step(
+            2121, 0, torch.Generator(run.device).manual_seed(7))[0]))
+            for _ in range(2)]
+        diff = [k for k in outs[0] if not torch.equal(outs[0][k], outs[1][k])]
+        if diff:
+            raise AssertionError(f"{run.name}: training step not bitwise "
+                                 f"repeatable: {diff}")
+        log("determinism", f"ok: {run.name} training step (random bg, one "
+            f"generator seed) run twice: {len(outs[0])} output tensors "
+            "(parameters, Adam moments, densify stats, metrics) bitwise equal")
 
 
-# ---------------------------------------------------------------- phase 5
+# ---------------------------------------------------------------- phase 7
 
 
 def composite_inputs_of(scene, fid):
@@ -504,10 +1026,14 @@ def composite_inputs_of(scene, fid):
     return (ci.feat_tl, ci.bg_tiles, ci.counts, ci.origins), cfg
 
 
-def work_of(feat_tl, counts, origins, cfg, contrib):
+def work_of(feat_tl, counts, origins, cfg, contrib, backward=False,
+            has_flow=False):
     """Bytes the function must move and fp32 operations it must do on
     these inputs: rows up to each tile's last evaluated instance, pairs
-    evaluated up to each pixel's early exit, contributing pairs."""
+    evaluated up to each pixel's early exit, contributing pairs. The
+    forward reads the rows and bg and writes the (T, PIX, 32) block and
+    the (T, L) counts; the backward also reads that block and the
+    cotangent, and writes the (T, L, 24) gradient."""
     import torch
 
     from gftorf_tpu_torch.render.composite import ALPHA_EPS, ALPHA_MAX, T_STOP
@@ -539,10 +1065,23 @@ def work_of(feat_tl, counts, origins, cfg, contrib):
         evaluated += int(n_eval.sum())
         rows += int(n_eval.amax(-1).sum())
     contributing = int(contrib.sum())
-    nbytes = 4 * (rows * C + T * 3 + T * pix * (12 + 32) + T * L)
-    ops = (OPS_EVAL * evaluated + OPS_CONTRIB * contributing
-           + (OPS_DD * contributing if cfg.need_dd else 0))
+    if backward:
+        nbytes = 4 * (rows * C + T * 3 + T * pix * (12 + 32 + 32) + T * L * C)
+        per_pair = (OPS_CONTRIB_BWD + (OPS_FLOW_BWD if has_flow else 0)
+                    + (OPS_DD_BWD if cfg.need_dd else 0))
+        ops = OPS_EVAL * evaluated + per_pair * contributing
+    else:
+        nbytes = 4 * (rows * C + T * 3 + T * pix * (12 + 32) + T * L)
+        ops = (OPS_EVAL * evaluated + OPS_CONTRIB * contributing
+               + (OPS_DD * contributing if cfg.need_dd else 0))
     return nbytes, ops
+
+
+def bound(nbytes, ops):
+    """(bound_ms, bound_by, ms for the bytes, ms for the operations)."""
+    t_bytes, t_ops = 1e3 * nbytes / PEAK_BYTES_PER_S, 1e3 * ops / PEAK_FP32_PER_S
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            t_bytes, t_ops)
 
 
 def time_ms(fn, reps):
@@ -560,37 +1099,108 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def phase_timing(scenes, worst_err, launches):
+def capture_kernel_calls(run, it, idx):
+    """The arguments the training step hands the compositor (forward and
+    backward), captured from one step of ``run`` outside any counted
+    window."""
+    import torch
+
     from gftorf_tpu_torch.render.kernels import dense
 
-    records = {}
-    for s in scenes:
+    calls = {}
+    originals = {name: getattr(dense, f"composite_{name}")
+                 for name in ("forward", "backward")}
+
+    def spy(name):
+        def call(*args):
+            calls.setdefault(name, tuple(
+                a.detach() if torch.is_tensor(a) else a for a in args))
+            return originals[name](*args)
+        return call
+
+    try:
+        for name in originals:
+            setattr(dense, f"composite_{name}", spy(name))
+        run.run_step(it, idx)
+    finally:
+        for name, fn in originals.items():
+            setattr(dense, f"composite_{name}", fn)
+    return calls
+
+
+def phase_timing(scenes, runs, worst, launches):
+    import torch
+
+    from gftorf_tpu_torch.render.kernels import dense
+
+    for s in scenes:  # the serving shapes (slice 1's measurement)
         args, cfg = composite_inputs_of(s, 1)
         out, contrib = dense.composite_forward_cuda(*args, cfg)
         ref_out, ref_contrib = dense.composite_forward_plain(*args, cfg)
         err, _ = compare(out, contrib, ref_out, ref_contrib, f"{s.name} serving")
-        worst_err = max(worst_err, err)
+        worst["dense_forward"] = max(worst["dense_forward"], err)
         ms = time_ms(lambda: dense.composite_forward_cuda(*args, cfg), 50)
         plain_ms = time_ms(lambda: dense.composite_forward_plain(*args, cfg), 3)
-        nbytes, ops = work_of(args[0], args[2], args[3], cfg, contrib)
-        t_bytes, t_ops = 1e3 * nbytes / PEAK_BYTES_PER_S, 1e3 * ops / PEAK_FP32_PER_S
-        records[s.name] = dict(ms=ms, plain_ms=plain_ms,
-                               bound_ms=max(t_bytes, t_ops),
-                               bound_by="bytes" if t_bytes >= t_ops else "operations")
+        b_ms, b_by, t_bytes, t_ops = bound(*work_of(args[0], args[2], args[3],
+                                                     cfg, contrib))
         T, L, _ = args[0].shape
         log("timing", f"dense_forward at {s.name} serving shapes (T={T}, "
             f"PIX={cfg.tile_pixels}, L={L}, instances {int(args[2].sum())}, "
             f"gates={cfg.need_dd}): {ms:.4f} ms; plain {plain_ms:.3f} ms; "
-            f"bound {max(t_bytes, t_ops):.4f} ms ({nbytes} B -> {t_bytes:.4f} "
-            f"ms, {ops} fp32 ops -> {t_ops:.4f} ms); max_abs_err {err:.3g}")
-    head = records["ftorf"]
-    kernels = [dict(
-        name="dense_forward", route="cuda",
-        source="gftorf_tpu_torch/csrc/dense_forward.cu",
-        replaces="gftorf_tpu/render/pallas_composite.py:308",
-        launches=launches, max_abs_err=worst_err, ms=head["ms"],
-        plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
-        bound_by=head["bound_by"], library_ms=None)]
+            f"bound {b_ms:.4f} ms ({b_by}); max_abs_err {err:.3g}")
+
+    # The ftorf training shapes: the blocks of one step on an integration
+    # frame (flow on), as the step hands them to the kernels.
+    ftorf = runs[0]
+    calls = capture_kernel_calls(ftorf, 2122, 0)
+    feat, bg, counts, origins, cfg = calls["forward"]
+    _, _, out, g, _, _, _, has_flow = calls["backward"]
+    T, L, _ = feat.shape
+    out_k, contrib = dense.composite_forward_cuda(feat, bg, counts, origins, cfg)
+    ref_out, ref_contrib = dense.composite_forward_plain(feat, bg, counts,
+                                                         origins, cfg)
+    err_f, lanes = compare(out_k, contrib, ref_out, ref_contrib, "ftorf training")
+    dfeat = dense.composite_backward_cuda(feat, bg, out, g, counts, origins,
+                                          cfg, has_flow)
+    ref_dfeat = dense.composite_backward_plain(feat, bg, out, g, counts,
+                                               origins, cfg, has_flow)
+    err_b, _ = compare_bwd(dfeat, ref_dfeat, lanes, "ftorf training")
+    worst["dense_forward"] = max(worst["dense_forward"], err_f)
+    worst["dense_backward"] = max(worst["dense_backward"], err_b)
+    timings = {
+        "dense_forward": (
+            lambda: dense.composite_forward_cuda(feat, bg, counts, origins, cfg),
+            lambda: dense.composite_forward_plain(feat, bg, counts, origins, cfg),
+            work_of(feat, counts, origins, cfg, contrib)),
+        "dense_backward": (
+            lambda: dense.composite_backward_cuda(feat, bg, out, g, counts,
+                                                  origins, cfg, has_flow),
+            lambda: dense.composite_backward_plain(feat, bg, out, g, counts,
+                                                   origins, cfg, has_flow),
+            work_of(feat, counts, origins, cfg, contrib, backward=True,
+                    has_flow=has_flow)),
+    }
+    replaces = {"dense_forward": "gftorf_tpu/render/pallas_composite.py:308",
+                "dense_backward": "gftorf_tpu/render/pallas_composite.py:441"}
+    steps = sum(r.steps for r in runs)
+    kernels = []
+    for name, (kernel, plain, (nbytes, ops)) in timings.items():
+        ms = time_ms(kernel, 20)
+        plain_ms = time_ms(plain, 2)
+        b_ms, b_by, t_bytes, t_ops = bound(nbytes, ops)
+        log("timing", f"{name} at ftorf training shapes (T={T}, "
+            f"PIX={cfg.tile_pixels}, L={L}, instances {int(counts.sum())}, "
+            f"flow={has_flow}): {ms:.4f} ms; plain {plain_ms:.3f} ms; bound "
+            f"{b_ms:.4f} ms ({nbytes} B -> {t_bytes:.4f} ms, {ops} fp32 ops "
+            f"-> {t_ops:.4f} ms); launches in the train phase "
+            f"{launches[name]} over {steps} steps; max_abs_err "
+            f"{worst[name]:.3g}")
+        kernels.append(dict(
+            name=name, route="cuda", source=f"gftorf_tpu_torch/csrc/{name}.cu",
+            replaces=replaces[name], launches=launches[name],
+            max_abs_err=worst[name], ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=None))
+    torch.cuda.synchronize()
     log("timing", "ok")
     return kernels
 
@@ -700,6 +1310,66 @@ def phase_profile(scenes, reps=5):
 # ---------------------------------------------------------------- main
 
 
+def phase_profile_train(run, steps=4):
+    """Where a training step's time goes: torch.profiler over ``steps``
+    ftorf steps; device busy share, device time by the step's spans
+    (train_step.forward / .backward / .update, found through each kernel's
+    launch) and by kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    run.step(2200, 0)  # warm
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for k in range(steps):
+            run.step(2201 + k, k % len(run.frame_ids))
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    path = os.path.join(ROOT, "build", "profile", f"trace_train_{run.name}.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    if not spans:
+        log("profile", f"{run.name} training: the profiler saw no device "
+            "activity (device busy share not measured)")
+        return
+    busy, end, by_name = 0.0, -1.0, {}
+    for a, z, name in spans:
+        busy += max(0.0, z - max(a, end))
+        end = max(end, z)
+        by_name[name] = by_name.get(name, 0.0) + (z - a)
+    # Kernel -> launching runtime call (by correlation id) -> enclosing span.
+    regions = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+               if e.get("cat") == "user_annotation"
+               and e["name"].startswith("train_step.")]
+    # Launch calls of both CUDA APIs ("cuda_runtime", and the low-level one
+    # that cuBLAS launches its GEMMs through).
+    launch_ts = {e["args"].get("correlation"): e["ts"] for e in events
+                 if str(e.get("cat", "")).startswith("cuda_") and "args" in e}
+    by_region = {}
+    for e in events:
+        if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        ts = launch_ts.get(e.get("args", {}).get("correlation"))
+        region = next((r for a, z, r in regions
+                       if ts is not None and a <= ts <= z), "outside spans")
+        by_region[region] = by_region.get(region, 0.0) + e["dur"]
+    log("profile", f"{run.name} {steps} training steps under the profiler: "
+        f"wall {wall_us / 1e3 / steps:.3f} ms/step, device busy "
+        f"{busy / 1e3 / steps:.3f} ms/step, idle share {1 - busy / wall_us:.3f}, "
+        f"{len(spans) / steps:.0f} device ops/step")
+    log("profile", "  device time by span: " + "; ".join(
+        f"{k} {v / 1e3 / steps:.3f} ms/step" for k, v in sorted(
+            by_region.items(), key=lambda kv: -kv[1])))
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        log("profile", f"  {us / 1e3 / steps:.4f} ms/step "
+            f"({100 * us / busy:.1f}% of busy): {name[:110]}")
+
+
 def main():
     try:
         import torch
@@ -724,11 +1394,14 @@ def main():
           flush=True)
     phase_build()
     worst = phase_kernels(device)
-    scenes, launches = phase_serve(device)
-    phase_determinism(scenes)
-    kernels = phase_timing(scenes, worst, launches)
+    scenes = phase_serve(device)
+    runs, launches = phase_train(device)
+    phase_train_vs_cpu(device)
+    phase_determinism(scenes, runs)
+    kernels = phase_timing(scenes, runs, worst, launches)
     if "--profile" in sys.argv[1:]:
         phase_profile(scenes)
+        phase_profile_train(runs[0])
     log("done", f"all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

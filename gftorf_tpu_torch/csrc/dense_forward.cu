@@ -48,20 +48,19 @@
 // cull instances per warp and double-buffer the batches (cp.async/TMA).
 //
 // Built with --fmad=false so each multiply and add rounds as the plain
-// PyTorch version's elementwise ops do.
+// PyTorch version's elementwise ops do. The alpha and transmittance step
+// lives in dense_common.cuh, shared with dense_backward.cu, so that the
+// backward latches the early exit exactly where this kernel did.
 
 #include <cuda_runtime.h>
 
+#include "dense_common.cuh"
+
 namespace {
 
-constexpr int FEAT = 24;   // packed feature columns (pack_gaussian_features)
-constexpr int BGC = 12;    // bg_tiles columns
-constexpr int OUTC = 32;   // output columns
+using namespace gftorf;
+
 constexpr int BATCH = 256; // instances staged per batch: 24 KB of shared memory
-constexpr float ALPHA_EPS = 1.0f / 255.0f;
-constexpr float ALPHA_MAX = 0.99f;
-constexpr float T_STOP = 1e-4f;
-constexpr unsigned FULL = 0xffffffffu;
 
 template <bool NEED_DD, bool NEED_DIST>
 __global__ void __launch_bounds__(1024)
@@ -110,13 +109,10 @@ dense_forward_kernel(const float* __restrict__ feat,
         const float* g = s_feat + j * FEAT;
         bool hit = false;
         if (!done) {
-          const float dx = g[0] - px;
-          const float dy = g[1] - py;
-          const float power =
-              -0.5f * (g[2] * dx * dx + g[4] * dy * dy) - g[3] * dx * dy;
-          const float alpha = fminf(ALPHA_MAX, g[5] * expf(fminf(power, 0.f)));
-          if (power <= 0.f && alpha >= ALPHA_EPS) {
-            const float t_next = T * (1.0f - alpha);
+          const Sample smp = eval_sample(g, px, py);
+          if (smp.valid) {
+            const float alpha = smp.alpha;
+            const float t_next = next_transmittance(T, alpha);
             if (t_next < T_STOP) {
               done = true;
             } else {

@@ -9,6 +9,13 @@ SH deltas at the output, so only the xyz and r/g/b heads are evaluated.
 The MLP runs in fp32 (the JAX package's ``deform_precision`` is a TPU
 MXU knob with no meaning here).
 
+Training updates the MLP without mutating anyone's module: its parameters
+travel as a plain dict of tensors (``DeformParams``, keyed by
+``DeformNetwork.named_parameters()``: ``hidden.{i}.weight``,
+``heads.{name}.bias``, ...), and ``apply_deform`` is the functional
+forward over such a dict. ``DeformNetwork.forward`` is ``apply_deform`` over
+the module's own parameters, so the two cannot drift apart.
+
 Weight layout: ``nn.Linear`` keeps (out, in); the JAX package keeps
 (in, out). ``weights.deform_params_from_numpy`` transposes.
 """
@@ -16,9 +23,10 @@ Weight layout: ``nn.Linear`` keeps (out, in); the JAX package keeps
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 HEADS = ("xyz", "rot", "r", "g", "b", "a")
@@ -31,6 +39,9 @@ class DeformConfig(NamedTuple):
     t_multires: int = 10
     sh_degree: int = 3
     xavier_init_dxyz: bool = False
+    # Isotropic Gaussians (one scale): the step then gives rotations no
+    # learning rate, as the JAX package's DeformConfig.isotropic does.
+    isotropic: bool = False
 
     @property
     def skip(self):
@@ -77,8 +88,57 @@ def embed_xyz(config: DeformConfig, xyz: torch.Tensor) -> torch.Tensor:
     return _embed(xyz, config.xyz_multires)
 
 
+DeformParams = Dict[str, torch.Tensor]
+
+
+def apply_deform(params: DeformParams, config: DeformConfig,
+                 xyz: torch.Tensor, t: torch.Tensor,
+                 x_emb: Optional[torch.Tensor] = None):
+    """Deformation at normalized positions (N, 3) and times (N, 1).
+
+    Returns d_xyz (N, 3), d_rot (N, 4) zeros, d_sh (N, M, 3),
+    d_sh_p (N, M, 2) zeros — matching time_utils.py:116-127.
+    """
+    if x_emb is None:
+        x_emb = embed_xyz(config, xyz)
+    t_emb = _embed(t, config.t_multires)
+    h = torch.cat([x_emb, t_emb], dim=-1)
+    for i in range(config.depth):
+        h = torch.relu(F.linear(h, params[f"hidden.{i}.weight"],
+                                params[f"hidden.{i}.bias"]))
+        # the concat feeds layer skip+1; when skip is the last layer
+        # there is no consumer and the heads take plain width
+        if i == config.skip and i + 1 < config.depth:
+            h = torch.cat([x_emb, t_emb, h], dim=-1)
+
+    def head(name):
+        return F.linear(h, params[f"heads.{name}.weight"],
+                        params[f"heads.{name}.bias"])
+
+    d_xyz = head("xyz")
+    d_sh = torch.stack([head(c) for c in ("r", "g", "b")], dim=-1)
+    n = xyz.shape[0]
+    d_rot = d_xyz.new_zeros((n, 4))
+    d_sh_p = d_xyz.new_zeros((n, config.num_shs, 2))
+    return d_xyz, d_rot, d_sh, d_sh_p
+
+
+def deform_params(net: "DeformNetwork") -> DeformParams:
+    """The module's parameters as a detached name -> tensor dict."""
+    return {k: v.detach() for k, v in net.named_parameters()}
+
+
+def clip_by_global_norm(tree: DeformParams, max_norm: float) -> DeformParams:
+    """torch.nn.utils.clip_grad_norm_ semantics (train.py:468), returning
+    new tensors instead of scaling in place."""
+    norm = torch.sqrt(sum((leaf ** 2).sum() for leaf in tree.values()))
+    scale = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
+    return {k: leaf * scale for k, leaf in tree.items()}
+
+
 class DeformNetwork(nn.Module):
-    """The deformation MLP (``apply_deform`` of the JAX package)."""
+    """The deformation MLP (``init_deform`` / ``apply_deform`` of the JAX
+    package as a module, for serving and loading)."""
 
     def __init__(self, config: DeformConfig = DeformConfig()):
         super().__init__()
@@ -94,28 +154,9 @@ class DeformNetwork(nn.Module):
 
     def forward(self, xyz: torch.Tensor, t: torch.Tensor,
                 x_emb: Optional[torch.Tensor] = None):
-        """Deformation at normalized positions (N, 3) and times (N, 1).
-
-        Returns d_xyz (N, 3), d_rot (N, 4) zeros, d_sh (N, M, 3),
-        d_sh_p (N, M, 2) zeros — matching time_utils.py:116-127.
-        """
-        cfg = self.config
-        if x_emb is None:
-            x_emb = embed_xyz(cfg, xyz)
-        t_emb = _embed(t, cfg.t_multires)
-        h = torch.cat([x_emb, t_emb], dim=-1)
-        for i, layer in enumerate(self.hidden):
-            h = torch.relu(layer(h))
-            # the concat feeds layer skip+1; when skip is the last layer
-            # there is no consumer and the heads take plain width
-            if i == cfg.skip and i + 1 < cfg.depth:
-                h = torch.cat([x_emb, t_emb, h], dim=-1)
-        d_xyz = self.heads["xyz"](h)
-        d_sh = torch.stack([self.heads[c](h) for c in ("r", "g", "b")], dim=-1)
-        n = xyz.shape[0]
-        d_rot = d_xyz.new_zeros((n, 4))
-        d_sh_p = d_xyz.new_zeros((n, cfg.num_shs, 2))
-        return d_xyz, d_rot, d_sh, d_sh_p
+        """``apply_deform`` over this module's parameters."""
+        return apply_deform(dict(self.named_parameters()), self.config, xyz,
+                            t, x_emb)
 
 
 def init_deform(config: DeformConfig = DeformConfig(),

@@ -3,9 +3,10 @@
 Each ``gftorf_tpu_torch/csrc/<name>.cu`` is compiled by nvcc for Hopper
 (``sm_90a``) into a shared library with a plain C interface, at first
 use, under ``build/kernels/`` at the root of the checkout. The library's
-file name carries a hash of its source and flags, so an edited source is
-rebuilt and an unchanged one is reused. ``build`` starts one nvcc per
-missing library, all at once, and waits for them together.
+file name carries a hash of its source, the headers it may include and
+the flags, so an edited source is rebuilt and an unchanged one is
+reused. ``build`` starts one nvcc per missing library, all at once, and
+waits for them together.
 """
 
 from __future__ import annotations
@@ -45,8 +46,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """Where the library of ``csrc/<name>.cu`` lives; its name hashes the
+    source, the shared headers (``csrc/*.cuh``) and the flags."""
+    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:12]}.so"
 
 

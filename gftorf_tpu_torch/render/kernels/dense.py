@@ -1,12 +1,20 @@
-"""Dense-layout tile compositor: the Hopper kernel and its plain version.
+"""Dense-layout tile compositor: the Hopper kernels and their plain versions.
 
-Counterpart of ``gftorf_tpu/render/pallas_composite.py``. The forward
-TPU kernel (``_forward_kernel``, launched by ``composite_forward_pallas``)
-becomes ``csrc/dense_forward.cu``, a CUDA C++ kernel for sm_90a bound
-with ctypes (see the note in that file for its design and bound).
-``composite_forward`` dispatches on the tensors' device: a CUDA tensor
-goes through the kernel (or the call raises), a CPU tensor through
-``composite_forward_plain``, the same function in vectorised torch.
+Counterpart of ``gftorf_tpu/render/pallas_composite.py``. The two TPU
+kernels become CUDA C++ kernels for sm_90a bound with ctypes (see the
+notes in those files for their design and bound):
+
+ - ``_forward_kernel`` (``composite_forward_pallas``) ->
+   ``csrc/dense_forward.cu``, wrapper ``composite_forward_cuda``;
+ - ``_backward_kernel`` (``composite_backward_pallas``) ->
+   ``csrc/dense_backward.cu``, wrapper ``composite_backward_cuda``.
+
+``composite_forward`` and ``composite_backward`` dispatch on the tensors'
+device: a CUDA tensor goes through the kernel (or the call raises), a CPU
+tensor through ``composite_forward_plain`` / ``composite_backward_plain``,
+the same functions in vectorised torch. ``DenseComposite`` is the
+``torch.autograd.Function`` in place of the JAX package's custom VJP
+(``_make_pallas_vjp`` / ``_run_pallas_vjp``).
 
 Packed feature columns (pack_gaussian_features):
   0:2 mean2d | 2:5 conic | 5 opacity | 6 dist_ndc
@@ -18,9 +26,12 @@ Output block (T, PIX, 32):
 (12/18/19 are zeros when config.need_dd is off, 14:17 when
 config.need_distribution is off.)
 
-This slice is forward-only: the wrapper refuses inputs that require
-gradients. The backward kernel and its autograd.Function come with the
-training slice.
+Never differentiate ``composite_forward_plain`` with autograd directly:
+its flow columns are computed with weights that are not detached, so the
+flow gradient would leak into the geometry, which the JAX package forbids
+(pallas_composite.py:551-553). Gradients go through ``DenseComposite``,
+whose backward is ``composite_backward``; a direct call of the CUDA
+forward wrapper with inputs that require grad is refused.
 """
 
 from __future__ import annotations
@@ -235,12 +246,13 @@ def composite_forward_cuda(feat_tl, bg_tiles, counts, origins,
     T, L, C = feat_tl.shape
     pix = config.tile_pixels
     dev = feat_tl.device
-    for name, x in (("feat_tl", feat_tl), ("bg_tiles", bg_tiles)):
-        if x.requires_grad:
-            raise ValueError(
-                f"{name} requires grad: the compositor is forward-only in "
-                "this slice (its backward kernel comes with training)"
-            )
+    if torch.is_grad_enabled():
+        for name, x in (("feat_tl", feat_tl), ("bg_tiles", bg_tiles)):
+            if x.requires_grad:
+                raise ValueError(
+                    f"{name} requires grad: call DenseComposite.apply, whose "
+                    "backward is the dense backward kernel"
+                )
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel takes CUDA tensors, got {dev}")
     if C != FEAT_COLS:
@@ -282,3 +294,223 @@ def composite_forward_cuda(feat_tl, bg_tiles, counts, origins,
 
 
 composite_forward_cuda.launches = 0
+
+
+def composite_backward(feat_tl, bg_tiles, out_res, g, counts, origins,
+                       config: RasterConfig, has_flow: bool):
+    """Gradient of the (T, PIX, 32) output block w.r.t. the packed
+    (T, L, 24) block, given the forward's output ``out_res`` and the
+    cotangent ``g`` (columns 13:20 and 26:32 of g are ignored). CUDA
+    tensors run the Hopper kernel, CPU tensors the plain version."""
+    if feat_tl.device.type == "cuda":
+        return composite_backward_cuda(feat_tl, bg_tiles, out_res, g, counts,
+                                       origins, config, has_flow)
+    if feat_tl.device.type == "cpu":
+        return composite_backward_plain(feat_tl, bg_tiles, out_res, g, counts,
+                                        origins, config, has_flow)
+    raise ValueError(f"no compositor for device {feat_tl.device}")
+
+
+def composite_backward_plain(feat_tl, bg_tiles, out_res, g, counts, origins,
+                             config: RasterConfig, has_flow: bool):
+    """The backward kernel's function in vectorised torch: the prefix form
+    of pallas_composite.py:441-599 over the whole tile depth at once.
+    Suffix sums are totals (from the forward residual columns 13, 17, 18,
+    19) minus inclusive cumsums over the lanes; d_alpha, then per-instance
+    sums over the tile's pixels. Chunked over ``config.tile_chunk`` tiles
+    like ``composite_forward_plain``."""
+    T, L, _ = feat_tl.shape
+    tw = config.tile_w
+    pix = config.tile_pixels
+    dev = feat_tl.device
+    pid = torch.arange(pix, device=dev)
+    dx_pix = (pid % tw).to(torch.float32)
+    dy_pix = (pid // tw).to(torch.float32)
+    lane = torch.arange(L, device=dev)
+    dfeat = torch.zeros((T, L, FEAT_COLS), dtype=torch.float32, device=dev)
+    step = max(1, config.tile_chunk)
+    for t0 in range(0, T, step):
+        sl = slice(t0, min(T, t0 + step))
+        present = lane < counts[sl, None]  # (c, L)
+        f = torch.where(present[..., None], feat_tl[sl], 0.0)  # (c, L, 24)
+        px = origins[sl, 0, None].to(torch.float32) + dx_pix  # (c, PIX)
+        py = origins[sl, 1, None].to(torch.float32) + dy_pix
+        inside = (px < config.width) & (py < config.height)
+        out, gg, bg = out_res[sl], g[sl], bg_tiles[sl]
+
+        # Per-pixel totals (pallas_composite.py:466-486), (c, PIX, 1).
+        t_final = out[..., 13:14]
+        a_tot = out[..., 17:18]
+        g_acc = gg[..., 11:12]
+        accum_f = torch.cat(
+            [out[..., 0:3] - t_final * bg[..., 0:3], out[..., 3:4]], dim=-1)
+        accum_p = out[..., 4:11] - t_final * bg[..., 4:11]
+        e_tot = (gg[..., 0:4] * accum_f).sum(-1, keepdim=True) + g_acc * a_tot
+        ep_tot = (gg[..., 4:11] * accum_p).sum(-1, keepdim=True)
+        bg_dot = ((bg[..., 0:3] * gg[..., 0:3]).sum(-1, keepdim=True)
+                  + (bg[..., 4:11] * gg[..., 4:11]).sum(-1, keepdim=True))
+
+        # The forward's recompute (composite_forward_plain), (c, PIX, L).
+        ddx = f[:, None, :, 0] - px[..., None]
+        ddy = f[:, None, :, 1] - py[..., None]
+        con_a = f[:, None, :, 2]
+        con_b = f[:, None, :, 3]
+        con_c = f[:, None, :, 4]
+        power = -0.5 * (con_a * ddx * ddx + con_c * ddy * ddy) - con_b * ddx * ddy
+        exp_p = torch.exp(torch.clamp(power, max=0.0))
+        raw = f[:, None, :, 5] * exp_p
+        alpha = torch.clamp(raw, max=ALPHA_MAX)
+        valid = ((power <= 0.0) & (alpha >= ALPHA_EPS) & inside[..., None]
+                 & present[:, None, :])
+        q = 1.0 - torch.where(valid, alpha, 0.0)
+        cp = torch.cumprod(q, dim=-1)
+        t_excl = torch.cat([torch.ones_like(cp[..., :1]), cp[..., :-1]], dim=-1)
+        t_incl = t_excl * q
+        contribute = valid & (t_incl >= T_STOP)
+        w = torch.where(contribute, alpha * t_excl, 0.0)
+        w_p = w * t_excl
+
+        e = gg[..., 0:4] @ f[..., 7:11].transpose(1, 2) + g_acc  # (c, PIX, L)
+        e_p = gg[..., 4:11] @ f[..., 11:18].transpose(1, 2)
+        u_f_incl = torch.cumsum(w * e, dim=-1)
+        u_p_incl = torch.cumsum(w_p * e_p, dim=-1)
+        d_alpha = (t_excl * e - (e_tot - u_f_incl) / q
+                   + t_excl * t_excl * e_p - 2.0 * (ep_tot - u_p_incl) / q
+                   - t_final / q * bg_dot)
+        d = dfeat[sl]
+        if config.need_dd:
+            wz_tot = out[..., 18:19]
+            wz2_tot = out[..., 19:20]
+            g_dd = gg[..., 12:13]
+            u_dd_tot = g_dd * 2.0 * (a_tot * wz2_tot - wz_tot * wz_tot)
+            z = f[:, None, :, 6]
+            sym = z * z * a_tot - 2.0 * z * wz_tot + wz2_tot
+            u_dd_incl = torch.cumsum(g_dd * w * sym, dim=-1)
+            d_alpha = d_alpha + g_dd * t_excl * sym - (u_dd_tot - u_dd_incl) / q
+            d[..., 6] = (g_dd * 2.0 * w * (z * a_tot - wz_tot)).sum(1)
+        d_alpha = torch.where(contribute, d_alpha, 0.0)
+
+        not_clamped = raw < ALPHA_MAX
+        d_power = torch.where(not_clamped, d_alpha * alpha, 0.0)
+        d[..., 5] = torch.where(not_clamped, d_alpha * exp_p, 0.0).sum(1)
+        d[..., 0] = (d_power * -(con_a * ddx + con_b * ddy)).sum(1)
+        d[..., 1] = (d_power * -(con_c * ddy + con_b * ddx)).sum(1)
+        d[..., 2] = (-0.5 * ddx * ddx * d_power).sum(1)
+        d[..., 3] = (-ddx * ddy * d_power).sum(1)
+        d[..., 4] = (-0.5 * ddy * ddy * d_power).sum(1)
+        d[..., 7:11] = w.transpose(1, 2) @ gg[..., 0:4]  # rgb, dist
+        d[..., 11:18] = w_p.transpose(1, 2) @ gg[..., 4:11]  # phasor
+        if has_flow:
+            # Detached weights: the flow gradient has no d_alpha term
+            # (pallas_composite.py:551-561).
+            d[..., 18:24] = w.transpose(1, 2) @ gg[..., 20:26]
+    return dfeat
+
+
+@functools.cache
+def _lib_backward() -> ctypes.CDLL:
+    from gftorf_tpu_torch.render.kernels.build import library
+
+    lib = library("dense_backward")
+    fn = lib.gftorf_dense_backward
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+BWD_MAX_PIXELS = 512
+
+
+def composite_backward_cuda(feat_tl, bg_tiles, out_res, g, counts, origins,
+                            config: RasterConfig, has_flow: bool):
+    """Launch csrc/dense_backward.cu on the tensors' card; adds one to
+    ``composite_backward_cuda.launches`` per launch. A launch the card
+    refuses (too many threads, registers or shared memory: the Hopper
+    counterpart of the JAX package's VMEM compile check,
+    render/vmem_check.py) raises."""
+    T, L, C = feat_tl.shape
+    pix = config.tile_pixels
+    dev = feat_tl.device
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernel takes CUDA tensors, got {dev}")
+    if C != FEAT_COLS:
+        raise ValueError(f"feat_tl has {C} columns, the kernel takes {FEAT_COLS}")
+    if pix > BWD_MAX_PIXELS or pix % 32 != 0:
+        raise ValueError(f"tile_pixels={pix}: the backward kernel runs one "
+                         "thread per pixel, so it must be a multiple of 32 "
+                         f"up to {BWD_MAX_PIXELS}")
+    expect = {
+        "feat_tl": (feat_tl, torch.float32, (T, L, FEAT_COLS)),
+        "bg_tiles": (bg_tiles, torch.float32, (T, pix, BG_COLS)),
+        "out_res": (out_res, torch.float32, (T, pix, OUT_COLS)),
+        "g": (g, torch.float32, (T, pix, OUT_COLS)),
+        "counts": (counts, torch.int32, (T,)),
+        "origins": (origins, torch.int32, (T, 2)),
+    }
+    for name, (x, dtype, shape) in expect.items():
+        if x.device != dev or x.dtype != dtype or tuple(x.shape) != shape:
+            raise ValueError(
+                f"{name}: expected {dtype} {shape} on {dev}, got "
+                f"{x.dtype} {tuple(x.shape)} on {x.device}"
+            )
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    dfeat = torch.empty((T, L, FEAT_COLS), dtype=torch.float32, device=dev)
+    if T == 0:
+        return dfeat
+    lib = _lib_backward()
+    with torch.cuda.device(dev):
+        err = lib.gftorf_dense_backward(
+            feat_tl.data_ptr(), bg_tiles.data_ptr(), out_res.data_ptr(),
+            g.data_ptr(), counts.data_ptr(), origins.data_ptr(),
+            dfeat.data_ptr(), T, L, pix, config.tile_w, config.width,
+            config.height, int(config.need_dd), int(has_flow),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"dense_backward kernel launch failed: cudaError {err}")
+    composite_backward_cuda.launches += 1
+    return dfeat
+
+
+composite_backward_cuda.launches = 0
+
+
+class DenseComposite(torch.autograd.Function):
+    """The compositor with its backward kernel (``_make_pallas_vjp`` and
+    ``_run_pallas_vjp``, pallas_composite.py:725-779).
+
+    ``DenseComposite.apply(feat_tl, bg_tiles, counts, origins, config,
+    has_flow)`` returns ``(out (T, PIX, 32), contrib (T, L))``. Only
+    ``feat_tl`` and ``bg_tiles`` get gradients; ``contrib`` and the output
+    columns 13:20 and 26:32 are not differentiable (the JAX
+    stop-gradients at :773-774). ``has_flow`` False makes the flow
+    columns' gradient zero, as the JAX kernel's static flag does."""
+
+    @staticmethod
+    def forward(ctx, feat_tl, bg_tiles, counts, origins, config, has_flow):
+        out, contrib = composite_forward(feat_tl, bg_tiles, counts, origins,
+                                         config)
+        ctx.save_for_backward(feat_tl, bg_tiles, counts, origins, out)
+        ctx.config = config
+        ctx.has_flow = bool(has_flow)
+        ctx.mark_non_differentiable(contrib)
+        return out, contrib
+
+    @staticmethod
+    def backward(ctx, g_out, _g_contrib):
+        feat_tl, bg_tiles, counts, origins, out = ctx.saved_tensors
+        g = g_out.clone()
+        g[..., 13:20] = 0.0
+        g[..., 26:] = 0.0
+        dfeat = dbg = None
+        if ctx.needs_input_grad[0]:
+            dfeat = composite_backward(feat_tl, bg_tiles, out, g.contiguous(),
+                                       counts, origins, ctx.config,
+                                       ctx.has_flow)
+        if ctx.needs_input_grad[1]:
+            t_final = out[..., 13:14]
+            dbg = torch.zeros_like(bg_tiles)
+            dbg[..., 0:3] = t_final * g[..., 0:3]
+            dbg[..., 4:11] = t_final * g[..., 4:11]
+        return dfeat, dbg, None, None, None, None

@@ -1,10 +1,20 @@
-"""Top-level rasterizer: preprocess -> bin -> gather -> composite.
+"""Top-level differentiable rasterizer: preprocess -> bin -> gather ->
+composite.
 
-Port of ``gftorf_tpu/render/rasterize.py::rasterize``, dense forward path.
-The compositor is chosen by the tensors' device (in place of the JAX
+Port of ``gftorf_tpu/render/rasterize.py::rasterize``, dense path. The
+compositor is chosen by the tensors' device (in place of the JAX
 package's ``jax.default_backend() == "tpu"`` switch): on a CUDA tensor it
-is the Hopper kernel of ``render/kernels/dense.py``, on a CPU tensor its
-plain PyTorch version.
+is the Hopper kernels of ``render/kernels/dense.py``, on a CPU tensor
+their plain PyTorch versions, both through the ``DenseComposite``
+autograd function. Gradients reach every input of ``preprocess``,
+``means2d_ndc`` (the densification signal; the reference's dL_dmean2D)
+and ``flow_precomp`` (through the flow columns only, with detached
+weights). Binning and the ``pixels`` counts stay out of the graph.
+
+Determinism: the backward of the instance gather ``packed[gauss_id]`` is
+a segment sum in a fixed order (``segment_sum_rows``), not the float
+atomics of PyTorch's own gather backward on CUDA, so a training step
+gives the same bits on every run.
 """
 
 from __future__ import annotations
@@ -16,14 +26,47 @@ import torch
 from gftorf_tpu_torch.render.binning import Binning, bin_gaussians
 from gftorf_tpu_torch.render.composite import tiles_to_image
 from gftorf_tpu_torch.render.kernels.dense import (
+    DenseComposite,
     _bg_to_tiles,
     _default_origins,
-    composite_forward,
     pack_gaussian_features,
     unpack_outputs,
 )
 from gftorf_tpu_torch.render.preprocess import PreprocessOutputs, preprocess
 from gftorf_tpu_torch.render.settings import CameraSpec, RasterConfig, RenderOutputs
+
+
+def segment_sum_rows(rows: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
+    """(n, ...) sums of the (K, ...) ``rows`` grouped by ``ids`` (K,), in a
+    fixed order: a stable sort by id, then one sequential sum per segment
+    (``torch.segment_reduce``). Rows whose id is negative are dropped."""
+    key = torch.where(ids >= 0, ids.long(), n)
+    key_s, order = torch.sort(key, stable=True)
+    bounds = torch.searchsorted(
+        key_s, torch.arange(n + 1, dtype=torch.int64, device=key.device))
+    return torch.segment_reduce(rows[order], "sum",
+                                lengths=bounds[1:] - bounds[:-1], unsafe=True)
+
+
+class _GatherRows(torch.autograd.Function):
+    """Rows of ``src`` at ``ids`` (K,), where a negative id reads row 0 and
+    gets no gradient. The backward is ``segment_sum_rows`` (the JAX
+    package's gather transposes to a deterministic scatter-add; PyTorch's
+    own uses float atomics on CUDA)."""
+
+    @staticmethod
+    def forward(ctx, src, ids):
+        ctx.save_for_backward(ids)
+        ctx.n = src.shape[0]
+        return src[ids.clamp(min=0).long()]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (ids,) = ctx.saved_tensors
+        return segment_sum_rows(grad.contiguous(), ids, ctx.n), None
+
+
+gather_rows = _GatherRows.apply
 
 
 class CompositeInputs(NamedTuple):
@@ -54,9 +97,8 @@ def composite_inputs(
     binning = bin_gaussians(pre.rect.detach(), pre.depth_view.detach(),
                             pre.valid, config, config.capacity_for(P))
     T, L = binning.gauss_id.shape
-    idc = binning.gauss_id.clamp(min=0).to(torch.int64).reshape(-1)
     packed = pack_gaussian_features(pre, flow=flow_precomp)  # (P, 24)
-    feat_tl = packed[idc].reshape(T, L, 24)
+    feat_tl = gather_rows(packed, binning.gauss_id.reshape(-1)).reshape(T, L, 24)
     return CompositeInputs(
         pre=pre,
         binning=binning,
@@ -87,15 +129,16 @@ def rasterize(
     flow_precomp: Optional[torch.Tensor] = None,
 ) -> RenderOutputs:
     """Render one camera; same arguments and outputs as the JAX
-    ``rasterize`` (forward only in this slice)."""
+    ``rasterize``, differentiable like it."""
     P = means3d.shape[0]
     ci = composite_inputs(
         means3d, scales, rotations, opacities, shs, shs_p, phase_offset,
         dc_offset, means2d_ndc, bg_map, camera, config, active_sh_degree,
         colors_precomp, phasors_precomp, cov3d_precomp, flow_precomp,
     )
-    out_blk, contrib = composite_forward(ci.feat_tl, ci.bg_tiles, ci.counts,
-                                         ci.origins, config)
+    out_blk, contrib = DenseComposite.apply(
+        ci.feat_tl, ci.bg_tiles, ci.counts, ci.origins, config,
+        flow_precomp is not None)
     out = unpack_outputs(out_blk, contrib)
 
     # Per-Gaussian touched-pixel counts: a sum of integer-valued float32

@@ -1,10 +1,11 @@
-"""Public renderer bridge: ``render`` and ``render_eval``.
+"""Public renderer bridge: ``render``, ``render_flow`` and ``render_eval``.
 
 Port of ``gftorf_tpu/renderer.py`` (the reference's
 gaussian_renderer/__init__.py:19-300 API): the functional state
 (GaussianParams + deformation offsets) in, the reference's output dict
-out. Forward only: both run without autograd. ``render_flow`` comes with
-the training slice.
+out. ``render`` and ``render_eval`` serve and run without autograd;
+``render_flow`` is differentiable with respect to the flow vectors (its
+geometry is detached, as in the reference).
 """
 
 from __future__ import annotations
@@ -107,6 +108,37 @@ def render(
         "distribution_tof": out_tof.distribution,
         "pixels": out_tof.pixels,
     }
+
+
+def render_flow(
+    params: GaussianParams,
+    d_xyz, d_rot, flow3d,
+    cam_tof: CameraSpec, config_tof: RasterConfig,
+    active_sh_degree: int = 3,
+    render_regions: Sequence[str] = ("static", "dynamic"),
+    alive=None,
+    device=None,
+):
+    """Splat 3D scene flow (N, 3) through the color channels with detached
+    geometry and a zero background (gaussian_renderer/__init__.py:141-204);
+    returns ``{"render_flow": (3, H, W)}``. The inputs must lie on
+    ``device`` (None = the CUDA card)."""
+    check_on(device, params.xyz, flow3d)
+    n = params.xyz.shape[0]
+    dev = params.xyz.device
+    means3d, scales, rots, opac, _, _ = _compose(
+        params, d_xyz, d_rot, torch.zeros_like(params.sh_color),
+        torch.zeros((n,) + params.sh_phase.shape[1:] + (2,), device=dev),
+        render_regions, alive)
+    flow_masked = torch.where(get_motion_mask(params)[:, None], flow3d, 0.0)
+    out = rasterize(
+        means3d.detach(), scales.detach(), rots.detach(), opac.detach(),
+        None, None, 0.0, 0.0, torch.zeros((n, 2), device=dev),
+        torch.zeros((7, config_tof.height, config_tof.width), device=dev),
+        camera=cam_tof, config=config_tof, active_sh_degree=active_sh_degree,
+        colors_precomp=flow_masked,
+    )
+    return {"render_flow": out.color}
 
 
 @torch.no_grad()

@@ -18,66 +18,13 @@ import numpy as np
 import pytest
 import torch
 
-from gftorf_tpu.render.binning import bin_gaussians as j_bin
-from gftorf_tpu.render.composite import TileFeatures, composite_tiles
-from gftorf_tpu.render.pallas_composite import (
-    _bg_to_tiles as j_bg_to_tiles,
-    _default_origins as j_origins,
-    composite_forward_pallas,
-    pack_gaussian_features as j_pack,
-)
-from gftorf_tpu.render.preprocess import preprocess as j_pre
-from gftorf_tpu.render.settings import RasterConfig as JConfig
+from gftorf_tpu.render.composite import composite_tiles
+from gftorf_tpu.render.pallas_composite import composite_forward_pallas
 from gftorf_tpu_torch.render.kernels import dense
-from gftorf_tpu_torch.render.settings import RasterConfig as TConfig
-from torch_port_util import assert_close, cameras, scene_arrays
-
-W, H = 64, 48
+from torch_port_util import assert_close, packed_tile_inputs
 
 
-def _packed_inputs(seed, n=240, tile_w=16, max_per_tile=256, flow=True,
-                   gates=True):
-    """JAX-preprocessed, binned and gathered tile inputs, as numpy."""
-    a = scene_arrays(seed, n)
-    jcam, _ = cameras(W, H, seed=seed)
-    kw = dict(height=H, width=W, tile_h=16, tile_w=tile_w,
-              max_per_tile=max_per_tile, need_dd=gates,
-              need_distribution=gates)
-    jcfg = JConfig(**kw)
-    opac = 1.0 / (1.0 + np.exp(-a["opacity"][:, 0]))
-    pre = j_pre(
-        jnp.asarray(a["xyz"]), jnp.exp(jnp.asarray(a["scaling"])),
-        jnp.asarray(a["rotation"]), jnp.asarray(opac), jnp.asarray(a["sh_color"]),
-        jnp.stack([jnp.asarray(a["sh_phase"]), jnp.asarray(a["sh_amp"])], -1),
-        np.float32(0.05), np.float32(0.02), jnp.zeros((n, 2)), jcam, jcfg, 3,
-    )
-    b = j_bin(pre.rect, pre.depth_view, pre.valid, jcfg, jcfg.capacity_for(n))
-    rng = np.random.default_rng(seed + 50)
-    flow_p = rng.normal(size=(n, 6)).astype(np.float32) if flow else None
-    packed = j_pack(pre, None if flow_p is None else jnp.asarray(flow_p))
-    T, L = b.gauss_id.shape
-    idc = jnp.maximum(b.gauss_id, 0)
-    feat_tl = jnp.take(packed, idc.reshape(-1), axis=0).reshape(T, L, 24)
-    bg = rng.uniform(-1, 1, (7, H, W)).astype(np.float32)
-    feats = TileFeatures(
-        gauss_id=b.gauss_id,
-        mean2d=jnp.take(pre.mean2d, idc, axis=0),
-        conic=jnp.take(pre.conic, idc, axis=0),
-        opacity=jnp.take(pre.opacity, idc, axis=0),
-        rgb=jnp.take(pre.rgb, idc, axis=0),
-        phasor=jnp.take(pre.phasor, idc, axis=0),
-        dist=jnp.take(pre.dist, idc, axis=0),
-        dist_ndc=jnp.take(pre.dist_ndc, idc, axis=0),
-        flow=None if flow_p is None else jnp.take(jnp.asarray(flow_p), idc,
-                                                   axis=0),
-    )
-    return dict(
-        jcfg=jcfg, tcfg=TConfig(**kw), feats=feats, bg=bg,
-        feat_tl=np.asarray(feat_tl),
-        bg_tiles=np.asarray(j_bg_to_tiles(jnp.asarray(bg), T, jcfg)),
-        counts=np.asarray(b.tile_count),
-        origins=np.asarray(j_origins(T, jcfg)),
-    )
+_packed_inputs = packed_tile_inputs
 
 
 @pytest.fixture

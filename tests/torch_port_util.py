@@ -9,8 +9,18 @@ import numpy as np
 import torch
 
 from gftorf_tpu.ops.transforms import projection_matrix, world_to_view
+from gftorf_tpu.render.binning import bin_gaussians as j_bin
+from gftorf_tpu.render.composite import TileFeatures
+from gftorf_tpu.render.pallas_composite import (
+    _bg_to_tiles as j_bg_to_tiles,
+    _default_origins as j_origins,
+    pack_gaussian_features as j_pack,
+)
+from gftorf_tpu.render.preprocess import preprocess as j_pre
 from gftorf_tpu.render.settings import CameraSpec as JCamera
+from gftorf_tpu.render.settings import RasterConfig as JConfig
 from gftorf_tpu_torch.render.settings import CameraSpec as TCamera
+from gftorf_tpu_torch.render.settings import RasterConfig as TConfig
 
 FOV_X, FOV_Y = 0.9, 0.7
 ZNEAR, ZFAR, DEPTH_RANGE = 0.1, 50.0, 10.0
@@ -94,15 +104,18 @@ def deform_arrays(seed, depth, width, xyz_multires=10, t_multires=10,
             {k: f32(v) for k, v in head_b.items()})
 
 
-def statics(scene_type, cfg_color, cfg_tof, depth, width, **kw):
+def statics(scene_type, cfg_color, cfg_tof, depth, width, sched=None, **kw):
     """The same static configuration for both packages: (jax StepStatic,
-    torch StepStatic). ``kw`` sets fields the two share; the JAX-only
-    training fields take their eval-path values."""
+    torch StepStatic). ``kw`` sets any StepStatic field (the loss switches
+    default to the eval path's values); ``sched`` is a dict of SchedStatic
+    fields, with ``weights`` a dict of LossWeights fields."""
     from gftorf_tpu.models.deform import DeformConfig as JDeform
-    from gftorf_tpu.render.settings import RasterConfig as JConfig
+    from gftorf_tpu.train.step import LossWeights as JWeights
+    from gftorf_tpu.train.step import SchedStatic as JSched
     from gftorf_tpu.train.step import StepStatic as JStatic
     from gftorf_tpu_torch.models.deform import DeformConfig as TDeform
-    from gftorf_tpu_torch.render.settings import RasterConfig as TConfig
+    from gftorf_tpu_torch.train.step import LossWeights as TWeights
+    from gftorf_tpu_torch.train.step import SchedStatic as TSched
     from gftorf_tpu_torch.train.step import StepStatic as TStatic
 
     shared = dict(
@@ -110,17 +123,23 @@ def statics(scene_type, cfg_color, cfg_tof, depth, width, **kw):
         render_regions=("static", "dynamic"), dynamic_on=True,
         use_quad=False, num_phasor_channels=2, optimize_phase_offset=False,
         optimize_dc_offset=False, scene_extent=2.0,
-    )
-    shared.update(kw)
-    jax_only = dict(
         sync_phase=False, use_wl1c=False, use_wl1p=False, wl1p_e=0.1,
         color_on=True, depth_on=False, dd_on=False, oe_on=False,
         scale_on=False, mlp_reg_on=False, flow_on=False, random_bg=False,
     )
+    shared.update(kw)
+    sched = dict(sched or {})
+    weights = sched.pop("weights", None)
+    jsched = JSched(**sched, **({} if weights is None
+                                else {"weights": JWeights(**weights)}))
+    tsched = TSched(**sched, **({} if weights is None
+                                else {"weights": TWeights(**weights)}))
     j = JStatic(config_color=JConfig(**cfg_color), config_tof=JConfig(**cfg_tof),
-                deform=JDeform(depth=depth, width=width), **jax_only, **shared)
+                deform=JDeform(depth=depth, width=width), sched=jsched,
+                **shared)
     t = TStatic(config_color=TConfig(**cfg_color), config_tof=TConfig(**cfg_tof),
-                deform=TDeform(depth=depth, width=width), **shared)
+                deform=TDeform(depth=depth, width=width), sched=tsched,
+                **shared)
     return j, t
 
 
@@ -136,3 +155,313 @@ def assert_close(port, ref, atol, rtol, name=""):
     np.testing.assert_allclose(
         port.detach().cpu().numpy() if torch.is_tensor(port) else port,
         np.asarray(ref), atol=atol, rtol=rtol, err_msg=name)
+
+
+def packed_tile_inputs(seed, n=240, tile_w=16, max_per_tile=256, flow=True,
+                       gates=True, width=64, height=48):
+    """JAX-preprocessed, binned and gathered tile inputs, as numpy, with
+    the configs (``jcfg``, ``tcfg``), the JAX ``TileFeatures`` and the
+    (7, H, W) bg map they came from."""
+    a = scene_arrays(seed, n)
+    jcam, _ = cameras(width, height, seed=seed)
+    kw = dict(height=height, width=width, tile_h=16, tile_w=tile_w,
+              max_per_tile=max_per_tile, need_dd=gates,
+              need_distribution=gates)
+    jcfg = JConfig(**kw)
+    opac = 1.0 / (1.0 + np.exp(-a["opacity"][:, 0]))
+    pre = j_pre(
+        jnp.asarray(a["xyz"]), jnp.exp(jnp.asarray(a["scaling"])),
+        jnp.asarray(a["rotation"]), jnp.asarray(opac), jnp.asarray(a["sh_color"]),
+        jnp.stack([jnp.asarray(a["sh_phase"]), jnp.asarray(a["sh_amp"])], -1),
+        np.float32(0.05), np.float32(0.02), jnp.zeros((n, 2)), jcam, jcfg, 3,
+    )
+    b = j_bin(pre.rect, pre.depth_view, pre.valid, jcfg, jcfg.capacity_for(n))
+    rng = np.random.default_rng(seed + 50)
+    flow_p = rng.normal(size=(n, 6)).astype(np.float32) if flow else None
+    packed = j_pack(pre, None if flow_p is None else jnp.asarray(flow_p))
+    T, L = b.gauss_id.shape
+    idc = jnp.maximum(b.gauss_id, 0)
+    feat_tl = jnp.take(packed, idc.reshape(-1), axis=0).reshape(T, L, 24)
+    bg = rng.uniform(-1, 1, (7, height, width)).astype(np.float32)
+    feats = TileFeatures(
+        gauss_id=b.gauss_id,
+        mean2d=jnp.take(pre.mean2d, idc, axis=0),
+        conic=jnp.take(pre.conic, idc, axis=0),
+        opacity=jnp.take(pre.opacity, idc, axis=0),
+        rgb=jnp.take(pre.rgb, idc, axis=0),
+        phasor=jnp.take(pre.phasor, idc, axis=0),
+        dist=jnp.take(pre.dist, idc, axis=0),
+        dist_ndc=jnp.take(pre.dist_ndc, idc, axis=0),
+        flow=None if flow_p is None else jnp.take(jnp.asarray(flow_p), idc,
+                                                   axis=0),
+    )
+    return dict(
+        jcfg=jcfg, tcfg=TConfig(**kw), feats=feats, bg=bg,
+        feat_tl=np.asarray(feat_tl),
+        bg_tiles=np.asarray(j_bg_to_tiles(jnp.asarray(bg), T, jcfg)),
+        counts=np.asarray(b.tile_count),
+        origins=np.asarray(j_origins(T, jcfg)),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Training state, frames and step comparisons (tests/test_torch_train_step*.py)
+
+
+def train_state_arrays(seed, n_alive, capacity, depth, width, sorted_layout=True):
+    """A whole training state as numpy, the same for both packages.
+
+    ``n_alive`` Gaussians of ``scene_arrays`` (the first half dynamic) in a
+    ``capacity`` of rows; dead rows are zeros. With ``sorted_layout`` the
+    rows are [dynamic+alive | static+alive | dead] (the Trainer's layout),
+    else they are shuffled. Densify stats hold earlier accumulations, Adam
+    moments are zero (the first step then exposes each gradient as
+    mu = 0.1 g), and the deform MLP moves the dynamic half a little."""
+    a = scene_arrays(seed, n_alive)
+    pad = capacity - n_alive
+    params = {k: (v if k in ("phase_offset", "dc_offset") else
+                  np.concatenate([v, np.zeros((pad,) + v.shape[1:], v.dtype)]))
+              for k, v in a.items()}
+    rng = np.random.default_rng(seed + 7)
+    alive = np.arange(capacity) < n_alive
+    aux = dict(
+        alive=alive,
+        max_radii2d=(rng.uniform(0, 6, capacity) * alive).astype(np.float32),
+        xyz_grad_accum=(rng.uniform(0, 1e-3, capacity) * alive).astype(np.float32),
+        denom=(rng.integers(0, 50, capacity) * alive).astype(np.float32),
+    )
+    if not sorted_layout:
+        perm = rng.permutation(capacity)
+        params = {k: v if k in ("phase_offset", "dc_offset") else v[perm]
+                  for k, v in params.items()}
+        aux = {k: v[perm] for k, v in aux.items()}
+    hw, hb, head_w, head_b = deform_arrays(seed + 1, depth, width)
+    head_w["xyz"] *= 0.2
+    deform = (hw, hb, head_w, head_b)
+
+    def zeros(tree):
+        hw_, hb_, w_, b_ = tree
+        return ([np.zeros_like(x) for x in hw_], [np.zeros_like(x) for x in hb_],
+                {k: np.zeros_like(v) for k, v in w_.items()},
+                {k: np.zeros_like(v) for k, v in b_.items()})
+
+    zp = {k: np.zeros_like(v) for k, v in params.items()}
+    return dict(params=params, aux=aux, adam=(zp, dict(zp), 0), deform=deform,
+                deform_adam=(zeros(deform), zeros(deform), 0))
+
+
+def jax_train_state(arrays):
+    """(GaussianModelState, DeformParams, deform AdamState) of the JAX
+    package from ``train_state_arrays``."""
+    from gftorf_tpu.models.deform import DeformParams
+    from gftorf_tpu.models.gaussians import (
+        AdamState, GaussianAux, GaussianModelState, GaussianParams)
+
+    def jp(d):
+        return GaussianParams(**{k: jnp.asarray(v) for k, v in d.items()})
+
+    def jd(leaves):
+        hw, hb, w, b = leaves
+        return DeformParams(tuple(map(jnp.asarray, hw)), tuple(map(jnp.asarray, hb)),
+                            {k: jnp.asarray(v) for k, v in w.items()},
+                            {k: jnp.asarray(v) for k, v in b.items()})
+
+    mu, nu, step = arrays["adam"]
+    model = GaussianModelState(
+        params=jp(arrays["params"]),
+        aux=GaussianAux(**{k: jnp.asarray(v) for k, v in arrays["aux"].items()}),
+        adam=AdamState(mu=jp(mu), nu=jp(nu), step=jnp.int32(step)),
+    )
+    dmu, dnu, dstep = arrays["deform_adam"]
+    return (model, jd(arrays["deform"]),
+            AdamState(mu=jd(dmu), nu=jd(dnu), step=jnp.int32(dstep)))
+
+
+def torch_train_state(arrays, deform_config, iteration=0):
+    """The port's TrainingState (on the CPU) from ``train_state_arrays``."""
+    from gftorf_tpu_torch.weights import training_state_from_numpy
+
+    return training_state_from_numpy(
+        arrays["params"], arrays["aux"], arrays["adam"], arrays["deform"],
+        arrays["deform_adam"], iteration, deform_config, device="cpu")
+
+
+def frame_pair(seed, fid, size_color, size_tof, cam_seeds, flow=False):
+    """One FrameData for both packages: (jax, torch). Ground truth is
+    numpy from ``seed``; cameras come from ``cameras`` (jittered), the ToF
+    intrinsics from the ToF camera's focal lengths. With ``flow`` both
+    flow maps are set and flagged present."""
+    from gftorf_tpu.train.step import FrameData as JFrame
+    from gftorf_tpu_torch.train.step import FrameData as TFrame
+
+    rng = np.random.default_rng(seed)
+    (wc, hc), (wt, ht) = size_color, size_tof
+    jcc, tcc = cameras(wc, hc, seed=cam_seeds[0], jitter=0.05)
+    jct, tct = cameras(wt, ht, seed=cam_seeds[1], jitter=0.05)
+    gt = dict(
+        gt_image=rng.uniform(0, 1, (3, hc, wc)),
+        gt_phasor=rng.normal(size=(3, ht, wt)),
+        gt_quad=rng.normal(size=(4, ht, wt)),
+        gt_distance=rng.uniform(1, 8, (1, ht, wt)),
+        forward_flow=rng.normal(size=(2, ht, wt)) if flow else np.zeros((2, ht, wt)),
+        backward_flow=rng.normal(size=(2, ht, wt)) if flow else np.zeros((2, ht, wt)),
+    )
+    gt = {k: v.astype(np.float32) for k, v in gt.items()}
+
+    def k_of(cam, w, h):
+        return np.array([[float(cam.focal_x), 0, w / 2], [0, float(cam.focal_y), h / 2],
+                         [0, 0, 1]], np.float32)
+
+    k_tof, k_col = k_of(tct, wt, ht), k_of(tcc, wc, hc)
+    j = JFrame(
+        frame_id=jnp.int32(fid), cam_color=jcc, cam_tof=jct,
+        **{k: jnp.asarray(v) for k, v in gt.items()},
+        has_forward_flow=jnp.asarray(flow), has_backward_flow=jnp.asarray(flow),
+        phase_offset=jnp.float32(0.1), dc_offset=jnp.float32(0.02),
+        intrinsics_tof=jnp.asarray(k_tof), intrinsics_color=jnp.asarray(k_col),
+    )
+    t = TFrame(
+        frame_id=torch.tensor(fid, dtype=torch.int32), cam_color=tcc,
+        cam_tof=tct, **{k: torch.tensor(v) for k, v in gt.items()},
+        has_forward_flow=torch.tensor(flow), has_backward_flow=torch.tensor(flow),
+        phase_offset=torch.tensor(0.1), dc_offset=torch.tensor(0.02),
+        intrinsics_tof=torch.tensor(k_tof), intrinsics_color=torch.tensor(k_col),
+    )
+    return j, t
+
+
+def stack_frames(pairs):
+    """Stacked datasets (jax, torch) from a list of ``frame_pair``s."""
+    import jax
+
+    jf = jax.tree.map(lambda *xs: jnp.stack(xs), *[p[0] for p in pairs])
+
+    def stack(*xs):
+        if isinstance(xs[0], tuple):
+            return type(xs[0])(*(stack(*col) for col in zip(*xs)))
+        return torch.stack(xs)
+
+    return jf, stack(*[p[1] for p in pairs])
+
+
+def clone_tree(x):
+    """A deep copy of nested tuples/dicts of tensors (to check purity)."""
+    if torch.is_tensor(x):
+        return x.clone()
+    if isinstance(x, dict):
+        return {k: clone_tree(v) for k, v in x.items()}
+    if isinstance(x, tuple):
+        return type(x)(*(clone_tree(v) for v in x)) if hasattr(x, "_fields") \
+            else tuple(clone_tree(v) for v in x)
+    return x
+
+
+def assert_tree_equal(a, b, where=""):
+    """Bitwise equality of two nested tuples/dicts of tensors."""
+    if torch.is_tensor(a):
+        assert torch.equal(a, b), f"{where} changed"
+    elif isinstance(a, dict):
+        for k in a:
+            assert_tree_equal(a[k], b[k], f"{where}.{k}")
+    elif isinstance(a, tuple):
+        for i, (x, y) in enumerate(zip(a, b)):
+            assert_tree_equal(x, y, f"{where}[{i}]")
+
+
+# Step tolerances. The first Adam step from zero moments gives
+# mu = 0.1 g and nu = 0.001 g^2, so mu holds each gradient: it is held at
+# atol 1e-4 * max|leaf| (gradients summed in another order through the
+# compositor's suffix sums) and rtol 1e-3; nu at rtol 2e-3 with the atol
+# that the same gradient error gives it (|d nu| <= 2e-4 * max|nu|). The new
+# parameters move by about +-lr each, so a gradient element that is tiny in
+# both packages may flip its sign: they are held at atol 2 lr.
+METRIC_RTOL = 1e-5
+MU_ATOL_FRAC, MU_RTOL = 1e-4, 1e-3
+NU_ATOL_FRAC, NU_RTOL = 2e-4, 2e-3
+
+
+def _close_frac(port, ref, atol_frac, rtol, name):
+    ref = np.asarray(ref)
+    port = np.asarray(port)
+    atol = atol_frac * float(np.abs(ref).max()) if ref.size else 0.0
+    np.testing.assert_allclose(port, ref, atol=atol, rtol=rtol, err_msg=name)
+
+
+def assert_step_matches(jout, tout, lrs, deform_lr):
+    """One train_step's outputs of both packages: the packed metrics, both
+    Adam states (mu, nu, step), the densify stats and the new parameters
+    (see the tolerances above). ``lrs`` and ``deform_lr`` are the port's
+    learning rates of the step (train/step.py::_gaussian_lrs_at,
+    _deform_lr_at). Returns the two metric vectors."""
+    from gftorf_tpu.train.step import METRIC_NAMES
+    from gftorf_tpu_torch.weights import deform_dict_to_numpy
+
+    jmodel, jdeform, jdadam, jpacked = jout
+    tmodel, tdeform, tdadam, tpacked = tout
+    jm, tm = np.asarray(jpacked), tpacked.numpy()
+    for i, name in enumerate(METRIC_NAMES):
+        np.testing.assert_allclose(tm[i], jm[i], rtol=METRIC_RTOL, atol=0,
+                                   err_msg=f"metric {name}")
+
+    def leaves(tree):
+        hw, hb, w, b = tree
+        return ([(f"hidden_w{i}", x) for i, x in enumerate(hw)]
+                + [(f"hidden_b{i}", x) for i, x in enumerate(hb)]
+                + [(f"head_w.{k}", w[k]) for k in sorted(w)]
+                + [(f"head_b.{k}", b[k]) for k in sorted(b)])
+
+    for which in ("mu", "nu"):
+        frac, rtol = ((MU_ATOL_FRAC, MU_RTOL) if which == "mu"
+                      else (NU_ATOL_FRAC, NU_RTOL))
+        jd = getattr(jdadam, which)
+        td = deform_dict_to_numpy(getattr(tdadam, which))
+        jd_leaves = leaves((jd.hidden_w, jd.hidden_b, jd.head_w, jd.head_b))
+        for (name, ref), (_, port) in zip(jd_leaves, leaves(td)):
+            _close_frac(port, ref, frac, rtol, f"deform {which} {name}")
+        for name in tmodel.params._fields:
+            ref = getattr(getattr(jmodel.adam, which), name)
+            port = getattr(getattr(tmodel.adam, which), name).numpy()
+            _close_frac(port, ref, frac, rtol, f"gaussian {which} {name}")
+    assert int(tmodel.adam.step) == int(jmodel.adam.step)
+    assert int(tdadam.step) == int(jdadam.step)
+
+    for name in ("denom", "max_radii2d", "alive"):
+        np.testing.assert_array_equal(getattr(tmodel.aux, name).numpy(),
+                                      np.asarray(getattr(jmodel.aux, name)), name)
+    _close_frac(tmodel.aux.xyz_grad_accum.numpy(), jmodel.aux.xyz_grad_accum,
+                MU_ATOL_FRAC, MU_RTOL, "xyz_grad_accum")
+
+    for name in tmodel.params._fields:
+        lr = getattr(lrs, name)
+        lr = lr.numpy() if torch.is_tensor(lr) else np.float32(lr)
+        port = getattr(tmodel.params, name).numpy()
+        ref = np.asarray(getattr(jmodel.params, name))
+        assert np.all(np.abs(port - ref) <= 2 * lr + 1e-7 * np.abs(ref)), name
+    jd_new = leaves((jdeform.hidden_w, jdeform.hidden_b, jdeform.head_w,
+                     jdeform.head_b))
+    for (name, ref), (_, port) in zip(jd_new, leaves(deform_dict_to_numpy(tdeform))):
+        ref = np.asarray(ref)
+        assert np.all(np.abs(port - ref) <= 2 * deform_lr + 1e-7 * np.abs(ref)), name
+    return jm, tm
+
+
+def run_step_pair(jstatic, tstatic, arrays, pairs, idx, it, seed=0):
+    """One train_step of each package from the same state on the same
+    stacked frames; returns (jax outputs, port outputs). Also checks that
+    the port's step left its input state bitwise unchanged."""
+    import jax
+
+    from gftorf_tpu.train.step import train_step as j_step
+    from gftorf_tpu_torch.train.step import train_step as t_step
+
+    jframes, tframes = stack_frames(pairs)
+    jmodel, jdeform, jdadam = jax_train_state(arrays)
+    jout = j_step(jstatic, jmodel, jdeform, jdadam, jframes, jnp.int32(idx),
+                  jnp.int32(it), jax.random.PRNGKey(seed))
+    state = torch_train_state(arrays, tstatic.deform)
+    before = clone_tree((state.model, state.deform, state.deform_adam, tframes))
+    tout = t_step(tstatic, state.model, state.deform, state.deform_adam,
+                  tframes, idx, it, torch.Generator().manual_seed(seed))
+    assert_tree_equal(before, (state.model, state.deform, state.deform_adam,
+                               tframes), "input")
+    return jout, tout
