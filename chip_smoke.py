@@ -5,10 +5,11 @@
 
 Phases, each printing lines tagged with its name and raising on failure:
 
-1. build    nvcc builds every kernel of the serving and training paths from
-            gftorf_tpu_torch/csrc/ (into build/kernels/), one nvcc per
-            source, all at once; prints the build seconds, ptxas' register,
-            spill and shared-memory report and the card.
+1. build    nvcc builds every kernel of the serving and training paths,
+            dense and flat-stream, from gftorf_tpu_torch/csrc/ (into
+            build/kernels/), one nvcc per source, all at once; prints the
+            build seconds, ptxas' register, spill and shared-memory report
+            and the card.
 2. kernels  each kernel's wrapper against its plain PyTorch version on the
             card, on seeded synthetic tile blocks: full width (150 tiles of
             16x32 pixels, L = 1024 and 2048) and a ragged 250x180 image
@@ -21,6 +22,15 @@ Phases, each printing lines tagged with its name and raising on failure:
             ulps of T_STOP), and backward rows past the tolerance only in
             such lanes. Then one backward launch at L = 8192 (tile depth
             has no shared-memory ceiling), checked the same way.
+            The flat-stream kernels the same way, on seeded Gaussians binned
+            by the port's bin_gaussians_flat (full width and the ragged
+            image; gates and flow on and off): empty tiles, tiles spanning
+            several 256-row blocks and one tile deeper than 16,384
+            instances, NaN in every stream slot outside the tiles' rows (the
+            plain version gets the zero-padded stream); and each flat
+            kernel against its dense twin on the same Gaussians binned
+            densely at an L that holds the deepest tile (rows mapped slot
+            <-> (tile, lane)).
 3. serve    eval_frame on a 100,000-Gaussian model (half of it dynamic)
             with the full-width deform MLP (D=8, W=256), drawn from a seed.
             ftorf: 8 frames at 320x240, single camera, lerp frames
@@ -28,6 +38,11 @@ Phases, each printing lines tagged with its name and raising on failure:
             are zeroed just before and read just after; every output must
             be finite, no tile may overflow. A 4,000-Gaussian frame of each
             scene must agree with the CPU path (plain compositor).
+   serve-flat  the same scenes and frames with flat_stream=True on both
+            RasterConfigs: every frame agrees with the dense frame (atol
+            1e-4, rtol 1e-3; integer outputs and pixel counts equal in all
+            but 0.1 % of entries), the flat forward kernel launches once
+            per rasterize call and the dense kernels not at all.
 4. train    train_step at full width: 100,000 live Gaussians (half dynamic)
             in a capacity of 200,000, sorted layout, render bucket 131,072,
             deform bucket 65,536, the StepStatic the Trainer builds from
@@ -37,20 +52,37 @@ Phases, each printing lines tagged with its name and raising on failure:
             on). torf: 10 steps, two cameras. Every metric and state leaf
             finite, no overflow, the loss falls, and both kernels' launch
             counts equal the differentiated rasterize calls.
+   train-flat  both runs again from their starting state with flat_stream=
+            True on both StepStatic configs: the first step's metrics, Adam
+            moments, densify stats and parameters match the dense step's on
+            the card (phase 5's kernels-vs-plain tolerances), the loss falls,
+            every state leaf is finite, both flat kernels launch once per
+            differentiated rasterize call and the dense kernels not at all.
 5. train-vs-cpu  one step of each config at 4,000 Gaussians on the card and
             on the CPU path (plain kernels), compared with the CPU parity
             tests' tolerances (tests/torch_port_util.py).
+   deep-tile  a crowded full-width scene (100,000 Gaussians and 20,000
+            more in front of one tile) whose deepest tile holds more than
+            16,384 instances: dense at max_per_tile 16,384 reports
+            tile_overflow > 0, flat reports 0; the flat frame equals the
+            dense frame at an L that holds the deepest tile, and both flat
+            kernels equal their dense twins there; logs the depth and the
+            flat kernels' times.
 6. determinism  a served frame rendered twice, and a training step run
-            twice from one state with one generator seed, are bitwise equal.
+            twice from one state with one generator seed, are bitwise equal,
+            on the dense and on the flat path.
 7. timing   each kernel at the ftorf training shapes (CUDA events), its
             plain version, and the least time the card could take for the
             same work (bytes over 3.35 TB/s, fp32 operations over 67
-            TFLOP/s, counted from this run's data).
+            TFLOP/s, counted from this run's data); the flat kernels on the
+            flat step's stream, and the work around the compositor that
+            grows with the layout's rows (gather, its segment-sum backward,
+            the flat gradient's zero-fill), dense against flat.
 
 ``python3 chip_smoke.py --profile`` adds a breakdown of a served frame by
-stage, the device's share of a training step under torch.profiler, and
-traces under build/profile/; without arguments the script runs the seven
-phases only.
+stage and the device's share of a training step under torch.profiler,
+dense and flat, and traces under build/profile/; without arguments the
+script runs the phases above only.
 
 The second-to-last line is the JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or outside a checkout of
@@ -89,7 +121,16 @@ E2E_ATOL, E2E_RTOL = 1e-4, 1e-3
 METRIC_RTOL = 1e-5
 MU_ATOL_FRAC, MU_RTOL = 1e-4, 1e-3
 NU_ATOL_FRAC, NU_RTOL = 2e-4, 2e-3
-KERNELS = ("dense_forward", "dense_backward")
+KERNELS = ("dense_forward", "dense_backward", "flat_forward", "flat_backward")
+REPLACES = {
+    "dense_forward": "gftorf_tpu/render/pallas_composite.py:308",
+    "dense_backward": "gftorf_tpu/render/pallas_composite.py:441",
+    "flat_forward": "gftorf_tpu/render/flat_stream.py:102",
+    "flat_backward": "gftorf_tpu/render/flat_stream.py:235",
+}
+# The Trainer's ceiling on max_per_tile (configs' max_per_tile_limit): past
+# it only the flat stream renders a scene exactly.
+MAX_PER_TILE_LIMIT = 16384
 
 
 def log(phase, msg):
@@ -256,9 +297,191 @@ def phase_kernels(device):
             f"max_abs_err {err_b:.3g} (max |grad| "
             f"{float(ref_dfeat.abs().max()):.3g}), rows past tolerance "
             f"{rows_b}")
-    log("kernels", f"ok: {len(cases)} cases, max_abs_err forward "
+    log("kernels", f"ok: {len(cases)} dense cases, max_abs_err forward "
         f"{worst['dense_forward']:.3g}, backward {worst['dense_backward']:.3g}")
     return worst
+
+
+def synthetic_stream(rng, config, flow, device, per_tile=200, deep=16_500):
+    """Seeded 2-D Gaussians binned into the aligned stream by the port's
+    bin_gaussians_flat: ``per_tile`` per tile on average over the image
+    (sigmas 0.7-8 px, opacity ceilings by tile column so that some tiles
+    saturate early and others stay translucent), ``deep`` more crowded
+    inside the middle tile alone, and nothing over the last tile column
+    (empty tiles). Returns the packed (P, 24) rows, the binning inputs and
+    the flat binning, all on ``device``."""
+    import numpy as np
+    import torch
+
+    from gftorf_tpu_torch.render.binning import bin_gaussians_flat
+
+    W, H, tw, th = config.width, config.height, config.tile_w, config.tile_h
+    gw, gh = config.grid_w, config.grid_h
+    n = per_tile * config.num_tiles
+
+    def gaussians(n, sig_lo, sig_hi, rho_max):
+        sx = np.exp(rng.uniform(np.log(sig_lo), np.log(sig_hi), n))
+        sy = np.exp(rng.uniform(np.log(sig_lo), np.log(sig_hi), n))
+        rho = rng.uniform(-rho_max, rho_max, n)
+        a, b, c = sx * sx + 0.3, rho * sx * sy, sy * sy + 0.3
+        mid = 0.5 * (a + c)
+        lam = mid + np.sqrt(np.maximum(0.1, mid * mid - (a * c - b * b)))
+        return a, b, c, np.ceil(3.0 * np.sqrt(lam))
+
+    a, b, c, r = gaussians(n, 0.7, 8.0, 0.8)
+    mx, my = rng.uniform(-8, W + 8, n), rng.uniform(-8, H + 8, n)
+    omax = np.array([0.05, 0.3, 0.99])[(np.floor(mx / tw).astype(int)) % 3]
+    opac = rng.uniform(0.01, 1.0, n) * omax
+    t_deep = (gh // 2) * gw + gw // 2
+    x0, y0 = (t_deep % gw) * tw, (t_deep // gw) * th
+    da, db, dc, dr = gaussians(deep, 0.6, 1.2, 0.5)
+    a, b, c, r = (np.concatenate(v) for v in ((a, da), (b, db), (c, dc), (r, dr)))
+    mx = np.concatenate([mx, x0 + dr + rng.uniform(0, 1, deep) * (tw - 2 * dr)])
+    my = np.concatenate([my, y0 + dr + rng.uniform(0, 1, deep) * (th - 2 * dr)])
+    opac = np.concatenate([opac, rng.uniform(0.01, 0.05, deep)])
+    n += deep
+    det = a * c - b * b
+    dist = rng.uniform(1.0, 10.0, n)
+    rect = np.stack([np.clip(np.floor((mx - r) / tw), 0, gw),
+                     np.clip(np.floor((my - r) / th), 0, gh),
+                     np.clip(np.floor((mx + r + tw - 1) / tw), 0, gw),
+                     np.clip(np.floor((my + r + th - 1) / th), 0, gh)], -1)
+    valid = ((rect[:, 2] > rect[:, 0]) & (rect[:, 3] > rect[:, 1])
+             & (rect[:, 2] <= gw - 1))
+    cols = [mx, my, c / det, -b / det, a / det, opac, dist / 10.0]
+    cols += [rng.uniform(0, 1, n) for _ in range(3)] + [dist]
+    cols += [rng.normal(size=n) for _ in range(7)]
+    cols += [rng.normal(size=n) if flow else np.zeros(n) for _ in range(6)]
+    packed = torch.tensor(np.stack(cols, -1).astype(np.float32), device=device)
+    rect = torch.tensor(rect.astype(np.int32), device=device)
+    depth = torch.tensor(dist.astype(np.float32), device=device)
+    valid = torch.tensor(valid, device=device)
+    capacity = config.capacity_for(n)
+    return (packed, (rect, depth, valid, capacity),
+            bin_gaussians_flat(rect, depth, valid, config, capacity))
+
+
+def gathered(packed, ids, fill):
+    """Rows of ``packed`` at ``ids``; rows of id -1 are ``fill``."""
+    import torch
+
+    rows = packed[ids.clamp(min=0).long()]
+    return torch.where((ids >= 0)[..., None], rows, torch.full_like(rows, fill))
+
+
+def compare_twins(flat_res, dense_res, slot, present, what):
+    """A flat kernel's output against its dense twin's on the same
+    Gaussians: the (T, PIX, 32) blocks, and the per-row outputs mapped
+    stream slot <-> (tile, lane) (every other slot of the flat output must
+    be 0, as every lane of the dense one past its tile's count). Returns
+    the max |err| and whether all of it is bitwise equal."""
+    import torch
+
+    (f_blk, f_rows), (d_blk, d_rows) = flat_res, dense_res
+    mask = present.reshape(present.shape + (1,) * (f_rows.dim() - 1))
+    mapped = torch.where(mask, f_rows[slot], 0.0)
+    outside = f_rows.clone()
+    outside[slot[present]] = 0
+    if bool(outside.any()):
+        raise AssertionError(f"{what}: flat output non-zero outside the tiles' rows")
+    worst, equal = 0.0, True
+    for a, b, atol, rtol in ((f_blk, d_blk, ATOL, RTOL),
+                             (mapped, d_rows, ATOL_BWD, RTOL_BWD)):
+        if a is None:
+            continue
+        err = (a - b).abs()
+        if bool((err > atol + rtol * b.abs()).any()):
+            raise AssertionError(f"{what}: flat and dense kernels differ "
+                                 f"(max {float(err.max()):.3g})")
+        worst = max(worst, float(err.max()))
+        equal = equal and bool(torch.equal(a, b))
+    return worst, equal
+
+
+def phase_kernels_flat(device, worst, per_tile=200, deep=16_500):
+    """The flat-stream kernels against their plain versions and against
+    their dense twins on the same Gaussians."""
+    import numpy as np
+    import torch
+
+    from gftorf_tpu_torch.render.binning import bin_gaussians
+    from gftorf_tpu_torch.render.kernels import dense, flat
+    from gftorf_tpu_torch.render.kernels.dense import _bg_to_tiles, _default_origins
+    from gftorf_tpu_torch.render.settings import RasterConfig
+
+    rng = np.random.default_rng(SEED + 1)
+    cases = []
+    for gates, flow in ((True, True), (True, False), (False, True), (False, False)):
+        cases.append((RasterConfig(height=240, width=320, tile_h=16, tile_w=32,
+                                   need_dd=gates, need_distribution=gates,
+                                   flat_stream=True), flow))
+    for gates, flow in ((True, True), (False, False)):
+        cases.append((RasterConfig(height=180, width=250, tile_h=16, tile_w=16,
+                                   need_dd=gates, need_distribution=gates,
+                                   flat_stream=True), flow))
+    twin_worst, twins_equal = 0.0, True
+    for cfg, flow in cases:
+        packed, (rect, depth, valid, capacity), fb = synthetic_stream(
+            rng, cfg, flow, device, per_tile, deep)
+        T = cfg.num_tiles
+        start, count = fb.tile_start, fb.tile_count
+        origins = _default_origins(T, cfg, device)
+        bg = rng.uniform(0, 1, (7, cfg.height, cfg.width)).astype(np.float32)
+        bg = _bg_to_tiles(torch.tensor(bg, device=device), T, cfg)
+        stream_nan = gathered(packed, fb.gauss_flat, float("nan"))
+        stream = gathered(packed, fb.gauss_flat, 0.0)
+        plain_cfg = dataclasses.replace(cfg, tile_chunk=4)  # (4, PIX, L) temporaries
+        out, contrib = flat.composite_forward_flat_cuda(stream_nan, bg, start,
+                                                        count, origins, cfg)
+        ref_out, ref_contrib = flat.composite_forward_flat_plain(
+            stream, bg, start, count, origins, plain_cfg)
+        g = cotangent(rng, cfg, device)
+        dfeat = flat.composite_backward_flat_cuda(stream_nan, bg, out, g, start,
+                                                  count, origins, cfg, flow)
+        ref_dfeat = flat.composite_backward_flat_plain(
+            stream, bg, out, g, start, count, origins, plain_cfg, flow)
+        torch.cuda.synchronize()
+        depth_max = int(count.max())
+        what = (f"flat {cfg.width}x{cfg.height} tiles {cfg.tile_h}x{cfg.tile_w} "
+                f"K_pad={stream.shape[0]} gates={cfg.need_dd} flow={flow}")
+        err, lanes = compare(out, contrib, ref_out, ref_contrib, what)
+        err_b, rows_b = compare_bwd(dfeat, ref_dfeat, lanes, what)
+        if depth_max <= MAX_PER_TILE_LIMIT or int((count == 0).sum()) < cfg.grid_h:
+            raise AssertionError(f"{what}: the stream lacks its deep or empty tiles")
+
+        # The dense twin: the same Gaussians binned densely at an L that
+        # holds the deepest tile.
+        dcfg = dataclasses.replace(cfg, flat_stream=False,
+                                   max_per_tile=depth_max)
+        db = bin_gaussians(rect, depth, valid, dcfg, capacity)
+        slot, present = flat.stream_slots(start, count)
+        if not torch.equal(torch.where(present, fb.gauss_flat[slot], -1),
+                           db.gauss_id[:, :slot.shape[1]]):
+            raise AssertionError(f"{what}: flat and dense binnings disagree")
+        feat_tl = gathered(packed, db.gauss_id, float("nan"))
+        d_out, d_contrib = dense.composite_forward_cuda(feat_tl, bg, db.tile_count,
+                                                        origins, dcfg)
+        d_dfeat = dense.composite_backward_cuda(feat_tl, bg, d_out, g,
+                                                db.tile_count, origins, dcfg, flow)
+        L = slot.shape[1]
+        e1, q1 = compare_twins((out, contrib), (d_out, d_contrib[:, :L]), slot,
+                               present, what + " forward twin")
+        e2, q2 = compare_twins((None, dfeat), (None, d_dfeat[:, :L]), slot,
+                               present, what + " backward twin")
+        twin_worst, twins_equal = max(twin_worst, e1, e2), twins_equal and q1 and q2
+        worst["flat_forward"] = max(worst["flat_forward"], err)
+        worst["flat_backward"] = max(worst["flat_backward"], err_b)
+        log("kernels", f"{what}: tiles {T} ({int((count == 0).sum())} empty, "
+            f"{int((count > flat.FLAT_ALIGN).sum())} spanning several blocks, "
+            f"deepest {depth_max}), instances {int(count.sum())}; forward "
+            f"max_abs_err {err:.3g}, contrib slots differing {lanes}; backward "
+            f"max_abs_err {err_b:.3g}, rows past tolerance {rows_b}; against "
+            f"the dense kernels at L={dcfg.max_per_tile}: max_abs_err "
+            f"{max(e1, e2):.3g}, bitwise equal {q1 and q2}")
+    log("kernels", f"ok: {len(cases)} flat cases, max_abs_err forward "
+        f"{worst['flat_forward']:.3g}, backward {worst['flat_backward']:.3g}; "
+        f"flat against dense kernels {twin_worst:.3g} (bitwise equal in every "
+        f"case: {twins_equal})")
 
 
 # ---------------------------------------------------------------- phase 3
@@ -410,6 +633,18 @@ class Scene:
             st, config_color=dataclasses.replace(st.config_color, max_per_tile=cap),
             config_tof=dataclasses.replace(st.config_tof, max_per_tile=cap))
 
+    def flat(self):
+        """The same scene served on the flat-stream path."""
+        import copy
+
+        f = copy.copy(self)
+        st = self.static
+        f.static = dataclasses.replace(
+            st, config_color=dataclasses.replace(st.config_color, flat_stream=True),
+            config_tof=dataclasses.replace(st.config_tof, flat_stream=True))
+        f.rasterize_calls = 0
+        return f
+
     def render(self, fid, device=None):
         from gftorf_tpu_torch.train.evaluate import eval_frame
 
@@ -448,6 +683,26 @@ def outputs_of(metrics, out_color, out_tof):
             if v is not None:
                 tensors[f"{tag}/{k}"] = v
     return tensors
+
+
+def compare_outputs(got, ref, what):
+    """Two renders' outputs by name (tensors on any device): integer
+    outputs and the touched-pixel counts equal but in at most 0.1 % of
+    their entries (lanes whose transmittance lies within ulps of T_STOP),
+    the rest at atol 1e-4, rtol 1e-3. Returns the max |err|."""
+    worst = 0.0
+    for k, r in ref.items():
+        v = got[k].to(r.device)
+        if not v.is_floating_point() or k.endswith("pixels"):
+            diff = int((v != r).sum())
+            if diff > max(1, r.numel() // 1000):
+                raise AssertionError(f"{what}: {k} differs in {diff}")
+            continue
+        err = (v - r).abs()
+        if bool((err > E2E_ATOL + E2E_RTOL * r.abs()).any()):
+            raise AssertionError(f"{what}: {k} max err {float(err.max())}")
+        worst = max(worst, float(err.max()))
+    return worst
 
 
 def check_frame(scene, fid, result):
@@ -513,24 +768,50 @@ def phase_serve(device):
     # Small input: the card against the CPU path (plain compositor).
     for name in ("ftorf", "torf"):
         small = Scene(name, 2, 4000, device)
-        gpu = outputs_of(*small.render(1))
-        cpu = outputs_of(*small.to_cpu().render(1, device="cpu"))
-        worst = 0.0
-        for k, ref in cpu.items():
-            got = gpu[k].cpu()
-            if not got.is_floating_point() or k.endswith("/pixels"):
-                diff = int((got != ref).sum())
-                if diff > max(1, ref.numel() // 1000):
-                    raise AssertionError(f"{name} small: {k} differs in {diff}")
-                continue
-            err = (got - ref).abs()
-            if bool((err > E2E_ATOL + E2E_RTOL * ref.abs()).any()):
-                raise AssertionError(f"{name} small: {k} max err {float(err.max())}")
-            worst = max(worst, float(err.max()))
+        worst = compare_outputs(outputs_of(*small.render(1)),
+                                outputs_of(*small.to_cpu().render(1, device="cpu")),
+                                f"{name} small")
         log("serve", f"{name}: 4000-Gaussian frame on the card matches the "
             f"CPU path (max abs err {worst:.3g})")
     log("serve", f"ok: {launches} kernel launches for {calls} rasterize calls")
     return scenes
+
+
+def phase_serve_flat(scenes):
+    """The served scenes again on the flat-stream path: each frame against
+    the dense frame, then a timed pass; returns the flat scenes."""
+    from gftorf_tpu_torch.render.kernels import dense, flat
+
+    dense_frames = [[outputs_of(*s.render(fid)) for fid in range(len(s.frames))]
+                    for s in scenes]
+    flats = [s.flat() for s in scenes]
+    dense.composite_forward_cuda.launches = 0
+    flat.composite_forward_flat_cuda.launches = 0
+    worst = 0.0
+    for s, ref_frames in zip(flats, dense_frames):
+        for fid, ref in enumerate(ref_frames):
+            out = s.render(fid)
+            check_frame(s, fid, out)
+            worst = max(worst, compare_outputs(
+                outputs_of(*out), ref, f"{s.name} flat frame {fid} vs dense"))
+    results = [serve(s) for s in flats]
+    launches = flat.composite_forward_flat_cuda.launches
+    calls = sum(s.rasterize_calls for s in flats)
+    if launches != calls or calls == 0 or dense.composite_forward_cuda.launches:
+        raise AssertionError(
+            f"{launches} flat and {dense.composite_forward_cuda.launches} dense "
+            f"kernel launches for {calls} flat rasterize calls")
+    for s, (times, out) in zip(flats, results):
+        _, _, out_t = out
+        log("serve-flat", f"{s.name}: {len(times)} frames, median "
+            f"{statistics.median(times):.3f} ms/frame (all "
+            f"{[round(t, 3) for t in times]}), num_rendered "
+            f"{int(out_t.num_rendered)}, tile_max {int(out_t.tile_max)}, "
+            f"tile_overflow {int(out_t.tile_overflow)}")
+    log("serve-flat", f"ok: every flat frame matches the dense frame (max abs "
+        f"err {worst:.3g}); {launches} flat forward launches for {calls} "
+        "rasterize calls, 0 dense")
+    return flats
 
 
 # ---------------------------------------------------------------- phase 4
@@ -605,6 +886,7 @@ class TrainRun:
             xavier_init_dxyz=m.xavier_init_dxyz,
             isotropic=m.isotropic_gaussians)
         seed = SEED + 10 + (0 if self.single else 1)
+        self.seed, self.flat = seed, False
         self.n_points = n_points
         params = serve_model(n_points, seed, device)
         pad = capacity - n_points
@@ -682,6 +964,22 @@ class TrainRun:
             0, dtype=torch.int32, device=device))
         self.generator = torch.Generator(device).manual_seed(seed)
         self.rasterize_calls = 0
+        # train_step is pure, so these tensors stay the starting state.
+        self.initial = (self.model, self.deform, self.deform_adam)
+
+    def restart(self, flat):
+        """This run back at its starting state (with its grown buffers and a
+        fresh generator), on the flat-stream path or the dense one."""
+        import copy
+
+        import torch
+
+        r = copy.copy(self)
+        r.flat = flat
+        r.model, r.deform, r.deform_adam = self.initial
+        r.generator = torch.Generator(self.device).manual_seed(self.seed)
+        r.rasterize_calls = 0
+        return r
 
     def grow(self, worst):
         """Grow max_per_tile past the deepest tile, as the Trainer does on
@@ -705,7 +1003,8 @@ class TrainRun:
                 height=size[1], width=size[0], tile_h=tpu.tile_h,
                 tile_w=tpu.tile_w, max_per_tile=self.max_per_tile,
                 dup_factor=self.dup_factor, sh_degree=m.sh_degree,
-                need_dd=need_dd, need_distribution=False)
+                need_dd=need_dd, need_distribution=False,
+                flat_stream=self.flat)
 
         return StepStatic(
             scene_type=self.name, config_color=raster(self.size_c, False),
@@ -792,9 +1091,35 @@ def stack_frames(frames):
     return stack(*frames)
 
 
-def phase_train(device, n_points=100_000, capacity=200_000):
+def train_run(run, steps):
+    """``steps`` accepted steps of ``run`` (iterations 2101...), timed on
+    the host clock; checks that every state leaf and loss is finite and
+    that the loss falls. Sets ``run.ms_per_step`` (median after one warm-up
+    step) and ``run.steps``; returns the times, the losses and the last
+    step's metrics."""
     import torch
 
+    times, losses, last = [], [], None
+    for k in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last = run.step(2101 + k, k % len(run.frame_ids))
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        losses.append(last["loss"])
+    what = f"{run.name}{' flat' if run.flat else ''}"
+    for name, t in tree_items((run.model, run.deform, run.deform_adam)):
+        if t.is_floating_point() and not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"{what}: state{name} not finite")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{what}: loss not finite: {losses}")
+    if not statistics.mean(losses[-5:]) < statistics.mean(losses[:5]):
+        raise AssertionError(f"{what}: the loss did not fall: {losses}")
+    run.ms_per_step, run.steps = statistics.median(times[1:]), steps
+    return times, losses, last
+
+
+def phase_train(device, n_points=100_000, capacity=200_000):
     from gftorf_tpu_torch.render.kernels import dense
 
     runs = [(TrainRun("ftorf", n_points, capacity, device), 20),
@@ -803,24 +1128,8 @@ def phase_train(device, n_points=100_000, capacity=200_000):
     dense.composite_backward_cuda.launches = 0
     calls0 = sum(r.rasterize_calls for r, _ in runs)
     for run, steps in runs:
-        times, losses, last = [], [], None
-        for k in range(steps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            last = run.step(2101 + k, k % len(run.frame_ids))
-            torch.cuda.synchronize()
-            times.append(1e3 * (time.perf_counter() - t0))
-            losses.append(last["loss"])
-        for name, t in tree_items((run.model, run.deform, run.deform_adam)):
-            if t.is_floating_point() and not bool(torch.isfinite(t).all()):
-                raise AssertionError(f"{run.name}: state{name} not finite")
-        if not all(math.isfinite(v) for v in losses):
-            raise AssertionError(f"{run.name}: loss not finite: {losses}")
+        times, losses, last = train_run(run, steps)
         first, tail = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
-        if not tail < first:
-            raise AssertionError(f"{run.name}: the loss did not fall: {losses}")
-        run.ms_per_step = statistics.median(times[1:])
-        run.steps = steps
         log("train", f"{run.name}: {steps} steps (iterations 2101-{2100 + steps}) "
             f"of {run.n_points} Gaussians in a capacity of "
             f"{run.model.aux.alive.shape[0]}, "
@@ -842,6 +1151,57 @@ def phase_train(device, n_points=100_000, capacity=200_000):
         f"{calls} differentiated rasterize calls in {steps} steps (and their "
         "replays)")
     return [r for r, _ in runs], {"dense_forward": fwd, "dense_backward": bwd}
+
+
+def phase_train_flat(runs):
+    """Both training runs again from their starting state on the flat-
+    stream path: the first step against the dense step, then the run."""
+    import torch
+
+    from gftorf_tpu_torch.render.kernels import dense, flat
+    from gftorf_tpu_torch.train.step import _deform_lr_at, _gaussian_lrs_at
+
+    dense_first = []
+    for run in runs:
+        ref, m = run.restart(flat=False).run_step(
+            2101, 0, torch.Generator(run.device).manual_seed(11))
+        if m["tile_overflow"] or m["dup_overflow"]:
+            raise AssertionError(f"{run.name}: the dense reference step overflows")
+        dense_first.append((ref, m))
+    flats = [run.restart(flat=True) for run in runs]
+    for name in ("forward", "backward"):
+        getattr(dense, f"composite_{name}_cuda").launches = 0
+        getattr(flat, f"composite_{name}_flat_cuda").launches = 0
+    for run, (ref, ref_m) in zip(flats, dense_first):
+        got, m = run.run_step(2101, 0, torch.Generator(run.device).manual_seed(11))
+        static = run.static_for(2101, True)
+        w = compare_steps(got, ref, _gaussian_lrs_at(static, 2101),
+                          _deform_lr_at(static, 2101), f"{run.name} flat vs dense")
+        log("train-flat", f"{run.name}: first step flat against dense from one "
+            f"state and generator seed: loss {m['loss']:.7g} vs "
+            f"{ref_m['loss']:.7g}, worst mu error / max|leaf| "
+            f"{w['gaussians']:.3g} (Gaussians), {w['mlp']:.3g} (deform MLP)")
+        dense_ms = run.ms_per_step
+        times, losses, last = train_run(run, run.steps)
+        first, tail = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+        log("train-flat", f"{run.name}: {run.steps} flat steps, median "
+            f"{run.ms_per_step:.3f} ms/step (dense {dense_ms:.3f}; all "
+            f"{[round(t, 3) for t in times]}); loss first five {first:.6g}, "
+            f"last five {tail:.6g}; num_rendered {int(last['num_rendered'])}, "
+            f"tile_max {int(last['tile_max'])}, tile_overflow "
+            f"{int(last['tile_overflow'])}")
+    calls = sum(r.rasterize_calls for r in flats)
+    fwd = flat.composite_forward_flat_cuda.launches
+    bwd = flat.composite_backward_flat_cuda.launches
+    dense_n = (dense.composite_forward_cuda.launches
+               + dense.composite_backward_cuda.launches)
+    if not (fwd == bwd == calls) or calls == 0 or dense_n:
+        raise AssertionError(f"{fwd} flat forward, {bwd} flat backward and "
+                             f"{dense_n} dense launches for {calls} "
+                             "differentiated flat rasterize calls")
+    log("train-flat", f"ok: {fwd} flat forward and {bwd} flat backward launches "
+        f"for {calls} differentiated rasterize calls, 0 dense")
+    return flats, {"flat_forward": fwd, "flat_backward": bwd}
 
 
 # ---------------------------------------------------------------- phase 5
@@ -971,10 +1331,124 @@ def phase_train_vs_cpu(device, n_points=4000, capacity=10_000):
     log("train-vs-cpu", "ok")
 
 
+def crowded_scene(device, n_bg, n_crowd, seed=SEED + 20):
+    """rasterize inputs of a full-width scene: ``n_bg`` Gaussians spread over
+    the view of a camera at the origin looking down +z, and ``n_crowd``
+    small, faint ones in front of one 16x32 tile (pixel offsets 8-24 px to
+    one side of the image centre and under 3.5 px from it vertically, so
+    that each lies in that tile whichever way the axes point)."""
+    import numpy as np
+    import torch
+
+    from gftorf_tpu_torch.ops.transforms import projection_matrix, world_to_view
+    from gftorf_tpu_torch.render.settings import CameraSpec
+
+    rng = np.random.default_rng(seed)
+    W, H, fov_x = 320, 240, 0.9
+    fov_y = 2.0 * np.arctan(np.tan(fov_x / 2) * H / W)
+    focal = W / (2.0 * np.tan(fov_x / 2))
+    z = np.concatenate([rng.uniform(2.0, 9.0, n_bg), rng.uniform(3.0, 6.0, n_crowd)])
+    u = np.concatenate([rng.uniform(-0.5, 0.5, n_bg) * z[:n_bg],
+                        rng.uniform(8.0, 24.0, n_crowd) / focal * z[n_bg:]])
+    v = np.concatenate([rng.uniform(-0.4, 0.4, n_bg) * z[:n_bg],
+                        rng.uniform(-3.5, 3.5, n_crowd) / focal * z[n_bg:]])
+    n = n_bg + n_crowd
+    quat = rng.normal(size=(n, 4))
+    x = dict(
+        means3d=np.stack([u, v, z], -1),
+        scales=np.concatenate([rng.uniform(0.005, 0.04, (n_bg, 3)),
+                               np.full((n_crowd, 3), 0.002)]),
+        rotations=quat / np.linalg.norm(quat, axis=-1, keepdims=True),
+        opacities=np.concatenate([rng.uniform(0.05, 0.95, n_bg),
+                                  rng.uniform(0.01, 0.05, n_crowd)]),
+        shs=0.3 * rng.normal(size=(n, 16, 3)), shs_p=0.2 * rng.normal(size=(n, 16, 2)),
+        means2d_ndc=np.zeros((n, 2)), bg_map=rng.uniform(0, 1, (7, H, W)),
+    )
+    x["shs_p"][:, 0, 1] += 1.0
+    x = {k: torch.tensor(val.astype(np.float32), device=device) for k, val in x.items()}
+    cam = CameraSpec.create(world_to_view(np.eye(3), np.zeros(3)),
+                            projection_matrix(0.1, 50.0, fov_x, fov_y), W, H,
+                            fov_x, fov_y, 0.1, 50.0, 15.0, device=device)
+    return x, cam
+
+
+def phase_deep_tile(device, n_bg=100_000, n_crowd=20_000):
+    import numpy as np
+    import torch
+
+    from gftorf_tpu_torch.render.kernels import dense, flat
+    from gftorf_tpu_torch.render.rasterize import composite_inputs, rasterize
+    from gftorf_tpu_torch.render.settings import RasterConfig
+
+    x, cam = crowded_scene(device, n_bg, n_crowd)
+    args = (x["means3d"], x["scales"], x["rotations"], x["opacities"], x["shs"],
+            x["shs_p"], 0.1, 0.02, x["means2d_ndc"], x["bg_map"], cam)
+    base = RasterConfig(height=240, width=320, tile_h=16, tile_w=32,
+                        max_per_tile=MAX_PER_TILE_LIMIT)
+    fcfg = dataclasses.replace(base, flat_stream=True)
+    with torch.no_grad():
+        out_flat = rasterize(*args, fcfg)
+        deepest = int(out_flat.tile_max)
+        capped = rasterize(*args, base)
+        big = dataclasses.replace(base, max_per_tile=deepest)
+        out_big = rasterize(*args, big)
+    if not (deepest > MAX_PER_TILE_LIMIT and int(capped.tile_overflow) > 0
+            and int(out_flat.tile_overflow) == 0 and int(out_big.tile_overflow) == 0):
+        raise AssertionError(
+            f"deepest tile {deepest}: dense at {MAX_PER_TILE_LIMIT} overflows by "
+            f"{int(capped.tile_overflow)}, flat by {int(out_flat.tile_overflow)}")
+    worst = compare_outputs(out_flat._asdict(),
+                            {k: v for k, v in out_big._asdict().items()
+                             if v is not None}, "deep tile flat vs dense")
+
+    # The kernels on the step's own blocks, flat against dense at L=deepest.
+    with torch.no_grad():
+        fi = composite_inputs(*args, fcfg)
+        di = composite_inputs(*args, big)
+    fb, db = fi.binning, di.binning
+    fwd = (fi.feat, fi.bg_tiles, fb.tile_start, fb.tile_count, fi.origins, fcfg)
+    out, contrib = flat.composite_forward_flat_cuda(*fwd)
+    d_out, d_contrib = dense.composite_forward_cuda(di.feat, di.bg_tiles,
+                                                    db.tile_count, di.origins, big)
+    g = cotangent(np.random.default_rng(SEED), fcfg, device)
+    bwd = (fi.feat, fi.bg_tiles, out, g, fb.tile_start, fb.tile_count,
+           fi.origins, fcfg, False)
+    dfeat = flat.composite_backward_flat_cuda(*bwd)
+    d_dfeat = dense.composite_backward_cuda(di.feat, di.bg_tiles, d_out, g,
+                                            db.tile_count, di.origins, big, False)
+    slot, present = flat.stream_slots(fb.tile_start, fb.tile_count)
+    L = slot.shape[1]
+    e1, q1 = compare_twins((out, contrib), (d_out, d_contrib[:, :L]), slot,
+                           present, "deep tile forward")
+    e2, q2 = compare_twins((None, dfeat), (None, d_dfeat[:, :L]), slot, present,
+                           "deep tile backward")
+    times = {
+        "flat_forward": time_ms(lambda: flat.composite_forward_flat_cuda(*fwd), 5),
+        "flat_backward": time_ms(lambda: flat.composite_backward_flat_cuda(*bwd), 3),
+        "dense_forward": time_ms(lambda: dense.composite_forward_cuda(
+            di.feat, di.bg_tiles, db.tile_count, di.origins, big), 5),
+        "dense_backward": time_ms(lambda: dense.composite_backward_cuda(
+            di.feat, di.bg_tiles, d_out, g, db.tile_count, di.origins, big,
+            False), 3),
+    }
+    log("deep-tile", f"{n_bg} + {n_crowd} Gaussians at 320x240, 16x32 tiles: "
+        f"deepest tile {deepest} instances, num_rendered "
+        f"{int(out_flat.num_rendered)}, K_pad {fi.feat.shape[0]}; dense at "
+        f"max_per_tile {MAX_PER_TILE_LIMIT}: tile_overflow "
+        f"{int(capped.tile_overflow)}; flat: tile_overflow "
+        f"{int(out_flat.tile_overflow)}; flat frame vs dense at L={big.max_per_tile}: "
+        f"max abs err {worst:.3g}; flat kernels vs dense kernels: max abs err "
+        f"{max(e1, e2):.3g}, bitwise equal {q1 and q2}")
+    log("deep-tile", "kernel ms on this scene: " + "; ".join(
+        f"{k} {v:.4f}" for k, v in times.items()))
+    log("deep-tile", "ok")
+
+
 # ---------------------------------------------------------------- phase 6
 
 
 def phase_determinism(scenes, runs):
+    """``scenes`` and ``runs`` hold the dense and the flat ones."""
     import torch
 
     for s in scenes:
@@ -983,8 +1457,9 @@ def phase_determinism(scenes, runs):
         diff = [k for k in a if not torch.equal(a[k], b[k])]
         if diff:
             raise AssertionError(f"{s.name}: not bitwise repeatable: {diff}")
-    log("determinism", f"ok: {len(a)} outputs of a served frame bitwise equal "
-        "on re-render")
+        log("determinism", f"ok: {s.name} "
+            f"{'flat' if s.static.config_tof.flat_stream else 'dense'}: "
+            f"{len(a)} outputs of a served frame bitwise equal on re-render")
     for run in runs:
         outs = [dict(tree_items(run.run_step(
             2121, 0, torch.Generator(run.device).manual_seed(7))[0]))
@@ -993,9 +1468,10 @@ def phase_determinism(scenes, runs):
         if diff:
             raise AssertionError(f"{run.name}: training step not bitwise "
                                  f"repeatable: {diff}")
-        log("determinism", f"ok: {run.name} training step (random bg, one "
-            f"generator seed) run twice: {len(outs[0])} output tensors "
-            "(parameters, Adam moments, densify stats, metrics) bitwise equal")
+        log("determinism", f"ok: {run.name} {'flat' if run.flat else 'dense'} "
+            f"training step (random bg, one generator seed) run twice: "
+            f"{len(outs[0])} output tensors (parameters, Adam moments, "
+            "densify stats, metrics) bitwise equal")
 
 
 # ---------------------------------------------------------------- phase 7
@@ -1023,17 +1499,20 @@ def composite_inputs_of(scene, fid):
             torch.zeros((n, 2), device=scene.device),
             torch.zeros((7, cfg.height, cfg.width), device=scene.device),
             frame.cam_tof, cfg, st.active_sh_degree)
-    return (ci.feat_tl, ci.bg_tiles, ci.counts, ci.origins), cfg
+    return (ci.feat, ci.bg_tiles, ci.binning.tile_count, ci.origins), cfg
 
 
 def work_of(feat_tl, counts, origins, cfg, contrib, backward=False,
-            has_flow=False):
+            has_flow=False, stream_rows=None):
     """Bytes the function must move and fp32 operations it must do on
     these inputs: rows up to each tile's last evaluated instance, pairs
     evaluated up to each pixel's early exit, contributing pairs. The
     forward reads the rows and bg and writes the (T, PIX, 32) block and
     the (T, L) counts; the backward also reads that block and the
-    cotangent, and writes the (T, L, 24) gradient."""
+    cotangent, and writes the (T, L, 24) gradient. For the flat kernels
+    ``feat_tl`` is the stream cut into tiles (flat.stream_slots) and
+    ``stream_rows`` the stream's length K_pad: they write K_pad counts or
+    gradient rows, and read tile_start besides the counts and origins."""
     import torch
 
     from gftorf_tpu_torch.render.composite import ALPHA_EPS, ALPHA_MAX, T_STOP
@@ -1065,13 +1544,15 @@ def work_of(feat_tl, counts, origins, cfg, contrib, backward=False,
         evaluated += int(n_eval.sum())
         rows += int(n_eval.amax(-1).sum())
     contributing = int(contrib.sum())
+    out_rows = T * L if stream_rows is None else stream_rows
+    ints = T * (3 if stream_rows is None else 4)
     if backward:
-        nbytes = 4 * (rows * C + T * 3 + T * pix * (12 + 32 + 32) + T * L * C)
+        nbytes = 4 * (rows * C + ints + T * pix * (12 + 32 + 32) + out_rows * C)
         per_pair = (OPS_CONTRIB_BWD + (OPS_FLOW_BWD if has_flow else 0)
                     + (OPS_DD_BWD if cfg.need_dd else 0))
         ops = OPS_EVAL * evaluated + per_pair * contributing
     else:
-        nbytes = 4 * (rows * C + T * 3 + T * pix * (12 + 32) + T * L)
+        nbytes = 4 * (rows * C + ints + T * pix * (12 + 32) + out_rows)
         ops = (OPS_EVAL * evaluated + OPS_CONTRIB * contributing
                + (OPS_DD * contributing if cfg.need_dd else 0))
     return nbytes, ops
@@ -1099,17 +1580,15 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def capture_kernel_calls(run, it, idx):
-    """The arguments the training step hands the compositor (forward and
-    backward), captured from one step of ``run`` outside any counted
-    window."""
+def capture_calls(run, it, idx, targets):
+    """The arguments of the first call of each ``name: (module, attr)`` of
+    ``targets`` in one step of ``run`` (outside any counted window): what
+    the training step hands the compositor, the instance gather, etc."""
     import torch
 
-    from gftorf_tpu_torch.render.kernels import dense
-
     calls = {}
-    originals = {name: getattr(dense, f"composite_{name}")
-                 for name in ("forward", "backward")}
+    originals = {name: getattr(module, attr)
+                 for name, (module, attr) in targets.items()}
 
     def spy(name):
         def call(*args):
@@ -1119,19 +1598,47 @@ def capture_kernel_calls(run, it, idx):
         return call
 
     try:
-        for name in originals:
-            setattr(dense, f"composite_{name}", spy(name))
+        for name, (module, attr) in targets.items():
+            setattr(module, attr, spy(name))
         run.run_step(it, idx)
     finally:
-        for name, fn in originals.items():
-            setattr(dense, f"composite_{name}", fn)
+        for name, (module, attr) in targets.items():
+            setattr(module, attr, originals[name])
     return calls
 
 
-def phase_timing(scenes, runs, worst, launches):
+def gather_costs(packed, ids_flat, ids_dense):
+    """Milliseconds of the work around the compositor that scales with its
+    layout's row count, for one render: the instance gather (with the flat
+    path's zeroing of padding rows), its backward (``segment_sum_rows``
+    over the rows), and zeroing the flat backward's (K_pad, 24) output."""
     import torch
 
-    from gftorf_tpu_torch.render.kernels import dense
+    from gftorf_tpu_torch.render.rasterize import segment_sum_rows
+
+    P = packed.shape[0]
+    ids_dense = ids_dense.reshape(-1)
+    g_flat = torch.ones((ids_flat.shape[0], 24), device=packed.device)
+    g_dense = torch.ones((ids_dense.shape[0], 24), device=packed.device)
+    with torch.no_grad():
+        return {
+            "flat gather + where": time_ms(lambda: torch.where(
+                (ids_flat >= 0)[:, None], packed[ids_flat.clamp(min=0).long()],
+                0.0), 20),
+            "dense gather": time_ms(
+                lambda: packed[ids_dense.clamp(min=0).long()], 20),
+            "flat segment_sum_rows": time_ms(
+                lambda: segment_sum_rows(g_flat, ids_flat, P), 20),
+            "dense segment_sum_rows": time_ms(
+                lambda: segment_sum_rows(g_dense, ids_dense, P), 20),
+            "flat dfeat zero-fill": time_ms(lambda: torch.zeros_like(g_flat), 20),
+        }
+
+
+def phase_timing(scenes, runs, flat_runs, worst, launches):
+    import torch
+
+    from gftorf_tpu_torch.render.kernels import dense, flat
 
     for s in scenes:  # the serving shapes (slice 1's measurement)
         args, cfg = composite_inputs_of(s, 1)
@@ -1150,12 +1657,15 @@ def phase_timing(scenes, runs, worst, launches):
             f"bound {b_ms:.4f} ms ({b_by}); max_abs_err {err:.3g}")
 
     # The ftorf training shapes: the blocks of one step on an integration
-    # frame (flow on), as the step hands them to the kernels.
-    ftorf = runs[0]
-    calls = capture_kernel_calls(ftorf, 2122, 0)
+    # frame (flow on), as the step hands them to the kernels, dense and flat.
+    from gftorf_tpu_torch.render import rasterize
+
+    calls = capture_calls(runs[0], 2122, 0, {
+        "forward": (dense, "composite_forward"),
+        "backward": (dense, "composite_backward"),
+        "gather": (rasterize, "gather_rows")})
     feat, bg, counts, origins, cfg = calls["forward"]
     _, _, out, g, _, _, _, has_flow = calls["backward"]
-    T, L, _ = feat.shape
     out_k, contrib = dense.composite_forward_cuda(feat, bg, counts, origins, cfg)
     ref_out, ref_contrib = dense.composite_forward_plain(feat, bg, counts,
                                                          origins, cfg)
@@ -1167,37 +1677,81 @@ def phase_timing(scenes, runs, worst, launches):
     err_b, _ = compare_bwd(dfeat, ref_dfeat, lanes, "ftorf training")
     worst["dense_forward"] = max(worst["dense_forward"], err_f)
     worst["dense_backward"] = max(worst["dense_backward"], err_b)
+
+    fcalls = capture_calls(flat_runs[0], 2122, 0, {
+        "forward": (flat, "composite_forward_flat"),
+        "backward": (flat, "composite_backward_flat"),
+        "gather": (rasterize, "gather_rows")})
+    fwd, bwd = fcalls["forward"], fcalls["backward"]
+    ffeat, _, fstart, fcount, forigins, fcfg = fwd
+    fhas_flow = bwd[-1]
+    fout, fcontrib = flat.composite_forward_flat_cuda(*fwd)
+    ref_out, ref_contrib = flat.composite_forward_flat_plain(*fwd)
+    err_ff, flanes = compare(fout, fcontrib, ref_out, ref_contrib,
+                             "ftorf flat training")
+    fdfeat = flat.composite_backward_flat_cuda(*bwd)
+    ref_fdfeat = flat.composite_backward_flat_plain(*bwd)
+    err_fb, _ = compare_bwd(fdfeat, ref_fdfeat, flanes, "ftorf flat training")
+    worst["flat_forward"] = max(worst["flat_forward"], err_ff)
+    worst["flat_backward"] = max(worst["flat_backward"], err_fb)
+    slot, _ = flat.stream_slots(fstart, fcount)
+    K = ffeat.shape[0]
+    costs = gather_costs(fcalls["gather"][0], fcalls["gather"][1],
+                         calls["gather"][1])
+    log("timing", f"work around the compositor of one ftorf training render "
+        f"(packed rows {fcalls['gather'][0].shape[0]}, stream K_pad {K}, dense "
+        f"block T*L {calls['gather'][1].numel()}), ms: " + "; ".join(
+            f"{k} {v:.4f}" for k, v in costs.items()))
+
+    T, L, _ = feat.shape
+    shapes = {
+        "dense": f"T={T}, PIX={cfg.tile_pixels}, L={L}, instances {int(counts.sum())}",
+        "flat": f"T={T}, PIX={fcfg.tile_pixels}, K_pad={K}, deepest tile "
+                f"{int(fcount.max())}, instances {int(fcount.sum())}",
+    }
     timings = {
         "dense_forward": (
             lambda: dense.composite_forward_cuda(feat, bg, counts, origins, cfg),
             lambda: dense.composite_forward_plain(feat, bg, counts, origins, cfg),
-            work_of(feat, counts, origins, cfg, contrib)),
+            work_of(feat, counts, origins, cfg, contrib), has_flow),
         "dense_backward": (
             lambda: dense.composite_backward_cuda(feat, bg, out, g, counts,
                                                   origins, cfg, has_flow),
             lambda: dense.composite_backward_plain(feat, bg, out, g, counts,
                                                    origins, cfg, has_flow),
             work_of(feat, counts, origins, cfg, contrib, backward=True,
-                    has_flow=has_flow)),
+                    has_flow=has_flow), has_flow),
+        "flat_forward": (
+            lambda: flat.composite_forward_flat_cuda(*fwd),
+            lambda: flat.composite_forward_flat_plain(*fwd),
+            work_of(ffeat[slot], fcount, forigins, fcfg, fcontrib,
+                    stream_rows=K), fhas_flow),
+        "flat_backward": (
+            lambda: flat.composite_backward_flat_cuda(*bwd),
+            lambda: flat.composite_backward_flat_plain(*bwd),
+            work_of(ffeat[slot], fcount, forigins, fcfg, fcontrib,
+                    backward=True, has_flow=fhas_flow, stream_rows=K), fhas_flow),
     }
-    replaces = {"dense_forward": "gftorf_tpu/render/pallas_composite.py:308",
-                "dense_backward": "gftorf_tpu/render/pallas_composite.py:441"}
     steps = sum(r.steps for r in runs)
+    # The train-flat phase also counts its first steps against dense.
+    counted = {"dense": f"{steps} steps",
+               "flat": f"{steps} steps and {len(flat_runs)} first steps "
+                       "compared with dense"}
     kernels = []
-    for name, (kernel, plain, (nbytes, ops)) in timings.items():
+    for name, (kernel, plain, (nbytes, ops), flow_on) in timings.items():
         ms = time_ms(kernel, 20)
         plain_ms = time_ms(plain, 2)
         b_ms, b_by, t_bytes, t_ops = bound(nbytes, ops)
-        log("timing", f"{name} at ftorf training shapes (T={T}, "
-            f"PIX={cfg.tile_pixels}, L={L}, instances {int(counts.sum())}, "
-            f"flow={has_flow}): {ms:.4f} ms; plain {plain_ms:.3f} ms; bound "
-            f"{b_ms:.4f} ms ({nbytes} B -> {t_bytes:.4f} ms, {ops} fp32 ops "
-            f"-> {t_ops:.4f} ms); launches in the train phase "
-            f"{launches[name]} over {steps} steps; max_abs_err "
+        log("timing", f"{name} at ftorf training shapes "
+            f"({shapes[name.split('_')[0]]}, flow={flow_on}): {ms:.4f} ms; "
+            f"plain {plain_ms:.3f} ms; bound {b_ms:.4f} ms ({nbytes} B -> "
+            f"{t_bytes:.4f} ms, {ops} fp32 ops -> {t_ops:.4f} ms); launches in "
+            f"the {'train-flat' if name.startswith('flat') else 'train'} phase "
+            f"{launches[name]} over {counted[name.split('_')[0]]}; max_abs_err "
             f"{worst[name]:.3g}")
         kernels.append(dict(
             name=name, route="cuda", source=f"gftorf_tpu_torch/csrc/{name}.cu",
-            replaces=replaces[name], launches=launches[name],
+            replaces=REPLACES[name], launches=launches[name],
             max_abs_err=worst[name], ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
             bound_by=b_by, library_ms=None))
     torch.cuda.synchronize()
@@ -1217,15 +1771,16 @@ def phase_profile(scenes, reps=5):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from gftorf_tpu_torch.render.binning import bin_gaussians
+    from gftorf_tpu_torch.render.binning import bin_gaussians, bin_gaussians_flat
     from gftorf_tpu_torch.render.composite import tiles_to_image
-    from gftorf_tpu_torch.render.kernels import dense
+    from gftorf_tpu_torch.render.kernels import dense, flat
     from gftorf_tpu_torch.render.preprocess import preprocess
     from gftorf_tpu_torch.train.step import _compose, _query_deform
 
     for s in scenes:
         st, frame, cfg = s.static, s.frames[1], s.static.config_tof
         n = s.n_points
+        tag = f"{s.name}{' flat' if cfg.flat_stream else ''}"
         times = {}
 
         def stage(name, fn):
@@ -1247,17 +1802,26 @@ def phase_profile(scenes, reps=5):
                     m3, sc, rot, op, shs, shs_p, frame.phase_offset,
                     frame.dc_offset, torch.zeros((n, 2), device=s.device),
                     frame.cam_tof, cfg, st.active_sh_degree))
-                b = stage("binning", lambda: bin_gaussians(
-                    pre.rect, pre.depth_view, pre.valid, cfg, cfg.capacity_for(n)))
-                idc = b.gauss_id.clamp(min=0).to(torch.int64).reshape(-1)
-                T, L = b.gauss_id.shape
-                feat = stage("pack + gather", lambda: dense.pack_gaussian_features(
-                    pre)[idc].reshape(T, L, 24))
+                T = cfg.num_tiles
                 bg = dense._bg_to_tiles(torch.zeros((7, cfg.height, cfg.width),
                                                     device=s.device), T, cfg)
                 org = dense._default_origins(T, cfg, s.device)
-                blk, contrib = stage("composite kernel", lambda: dense.composite_forward(
-                    feat, bg, b.tile_count, org, cfg))
+                binner = bin_gaussians_flat if cfg.flat_stream else bin_gaussians
+                b = stage("binning", lambda: binner(
+                    pre.rect, pre.depth_view, pre.valid, cfg, cfg.capacity_for(n)))
+                ids = b.gauss_flat if cfg.flat_stream else b.gauss_id.reshape(-1)
+                idc = ids.clamp(min=0).to(torch.int64)
+                if cfg.flat_stream:
+                    feat = stage("pack + gather", lambda: torch.where(
+                        (ids >= 0)[:, None], dense.pack_gaussian_features(pre)[idc],
+                        0.0))
+                    blk, contrib = stage("composite kernel", lambda: flat.composite_forward_flat(
+                        feat, bg, b.tile_start, b.tile_count, org, cfg))
+                else:
+                    feat = stage("pack + gather", lambda: dense.pack_gaussian_features(
+                        pre)[idc].reshape(T, -1, 24))
+                    blk, contrib = stage("composite kernel", lambda: dense.composite_forward(
+                        feat, bg, b.tile_count, org, cfg))
 
                 def finish():
                     px = torch.zeros(n, device=s.device).index_add_(
@@ -1269,7 +1833,7 @@ def phase_profile(scenes, reps=5):
                 stage("pixel sum + images", finish)
         med = {k: statistics.median(v[1:]) for k, v in times.items()}
         total = sum(med.values())
-        log("profile", f"{s.name} one ToF render, stage medians of {reps}: "
+        log("profile", f"{tag} one ToF render, stage medians of {reps}: "
             + "; ".join(f"{k} {v:.3f} ms ({100 * v / total:.1f}%)"
                         for k, v in med.items()) + f"; sum {total:.3f} ms")
 
@@ -1280,7 +1844,8 @@ def phase_profile(scenes, reps=5):
                 s.render(fid)
             torch.cuda.synchronize()
             wall_us = 1e6 * (time.perf_counter() - t0)
-        path = os.path.join(ROOT, "build", "profile", f"trace_{s.name}.json")
+        path = os.path.join(ROOT, "build", "profile",
+                            f"trace_{tag.replace(' ', '_')}.json")
         os.makedirs(os.path.dirname(path), exist_ok=True)
         prof.export_chrome_trace(path)
         with open(path) as f:
@@ -1288,7 +1853,7 @@ def phase_profile(scenes, reps=5):
         spans = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
                        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
         if not spans:
-            log("profile", f"{s.name}: the profiler saw no device activity "
+            log("profile", f"{tag}: the profiler saw no device activity "
                 "(device busy share not measured)")
             continue
         busy, end, by_name = 0.0, -1.0, {}
@@ -1298,16 +1863,13 @@ def phase_profile(scenes, reps=5):
             by_name[name] = by_name.get(name, 0.0) + (z - a)
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
         nf = len(s.frames)
-        log("profile", f"{s.name} {nf} frames under the profiler: wall "
+        log("profile", f"{tag} {nf} frames under the profiler: wall "
             f"{wall_us / 1e3 / nf:.3f} ms/frame, device busy "
             f"{busy / 1e3 / nf:.3f} ms/frame, idle share "
             f"{1 - busy / wall_us:.3f}, {len(spans) / nf:.0f} device ops/frame")
         for name, us in top:
             log("profile", f"  {us / 1e3 / nf:.4f} ms/frame "
                 f"({100 * us / busy:.1f}% of busy): {name[:110]}")
-
-
-# ---------------------------------------------------------------- main
 
 
 def phase_profile_train(run, steps=4):
@@ -1326,7 +1888,8 @@ def phase_profile_train(run, steps=4):
             run.step(2201 + k, k % len(run.frame_ids))
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
-    path = os.path.join(ROOT, "build", "profile", f"trace_train_{run.name}.json")
+    tag = f"{run.name}{'_flat' if run.flat else ''}"
+    path = os.path.join(ROOT, "build", "profile", f"trace_train_{tag}.json")
     os.makedirs(os.path.dirname(path), exist_ok=True)
     prof.export_chrome_trace(path)
     with open(path) as f:
@@ -1334,7 +1897,7 @@ def phase_profile_train(run, steps=4):
     spans = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
     if not spans:
-        log("profile", f"{run.name} training: the profiler saw no device "
+        log("profile", f"{tag} training: the profiler saw no device "
             "activity (device busy share not measured)")
         return
     busy, end, by_name = 0.0, -1.0, {}
@@ -1358,7 +1921,7 @@ def phase_profile_train(run, steps=4):
         region = next((r for a, z, r in regions
                        if ts is not None and a <= ts <= z), "outside spans")
         by_region[region] = by_region.get(region, 0.0) + e["dur"]
-    log("profile", f"{run.name} {steps} training steps under the profiler: "
+    log("profile", f"{tag} {steps} training steps under the profiler: "
         f"wall {wall_us / 1e3 / steps:.3f} ms/step, device busy "
         f"{busy / 1e3 / steps:.3f} ms/step, idle share {1 - busy / wall_us:.3f}, "
         f"{len(spans) / steps:.0f} device ops/step")
@@ -1368,6 +1931,9 @@ def phase_profile_train(run, steps=4):
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         log("profile", f"  {us / 1e3 / steps:.4f} ms/step "
             f"({100 * us / busy:.1f}% of busy): {name[:110]}")
+
+
+# ---------------------------------------------------------------- main
 
 
 def main():
@@ -1394,14 +1960,20 @@ def main():
           flush=True)
     phase_build()
     worst = phase_kernels(device)
+    phase_kernels_flat(device, worst)
     scenes = phase_serve(device)
+    flat_scenes = phase_serve_flat(scenes)
     runs, launches = phase_train(device)
+    flat_runs, flat_launches = phase_train_flat(runs)
+    launches.update(flat_launches)
     phase_train_vs_cpu(device)
-    phase_determinism(scenes, runs)
-    kernels = phase_timing(scenes, runs, worst, launches)
+    phase_deep_tile(device)
+    phase_determinism(scenes + flat_scenes, runs + flat_runs)
+    kernels = phase_timing(scenes, runs, flat_runs, worst, launches)
     if "--profile" in sys.argv[1:]:
-        phase_profile(scenes)
+        phase_profile(scenes + flat_scenes)
         phase_profile_train(runs[0])
+        phase_profile_train(flat_runs[0])
     log("done", f"all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

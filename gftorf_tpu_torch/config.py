@@ -11,7 +11,9 @@ GPU: ``check_vmem_cap`` (Pallas scoped-VMEM check), ``deform_precision``
 (MXU pass tiers; the port's deform MLP always runs in fp32),
 ``use_pallas`` (the compositor is chosen by the tensors' device) and the
 ``GFTORF_*_CHUNK`` environment variables (Pallas lane chunks), which the
-port never reads.
+port never reads: the dense ones and ``GFTORF_FLAT_FWD_CHUNK`` /
+``GFTORF_FLAT_BWD_CHUNK`` alike (the flat stream's alignment is fixed at
+256, the JAX package's default).
 """
 
 from __future__ import annotations
@@ -196,10 +198,14 @@ class TpuParams:
     mesh_shards: int = 1  # devices for tile/primitive sharding
     mesh_data: int = 1  # devices for camera data-parallelism
     use_pallas: bool = True
-    # Flat sorted-stream compositor (render/flat_stream.py): stream-
-    # sized gathers, unbounded tile depth (no truncation / tile-cap VMEM
-    # ceiling). TPU Pallas path only; validated vs the XLA compositor in
-    # tests/test_flat_stream.py and on hardware via tools/tpu_selftest.
+    # Flat sorted-stream compositor (render/kernels/flat.py): each tile's
+    # instances are one segment of the depth-sorted duplicate stream, so
+    # tile depth is unbounded (no truncation at max_per_tile). It is
+    # RasterConfig.flat_stream, which the JAX Trainer copies from here; the
+    # port has no Trainer yet, so its callers set RasterConfig.flat_stream
+    # themselves. The port takes the path on either device (the Hopper
+    # kernels csrc/flat_{forward,backward}.cu on the card, their plain
+    # versions on the CPU), where the JAX package takes it only on a TPU.
     flat_stream: bool = False
     # What to do when a scene's deepest tile outgrows the dense Pallas
     # backward's VMEM-calibrated max_per_tile ceiling
@@ -211,8 +217,9 @@ class TpuParams:
     #                exactly).
     #   "truncate" — keep the dense kernels and drop the deepest
     #                instances with a one-time warning (explicit opt-in).
-    # The port has no flat-stream compositor yet; the field is kept so
-    # that configs load.
+    # The port has the flat compositor (flat_stream above) but no Trainer
+    # yet, and the switch on overflow is the Trainer's, so nothing in the
+    # port reads this field yet.
     tile_overflow_fallback: str = "flat"
     # Verify at Trainer startup (TPU only) that the dense backward
     # kernel still compiles at the calibrated VMEM ceiling the trainer

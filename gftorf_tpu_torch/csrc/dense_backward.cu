@@ -55,22 +55,20 @@
 // pallas_composite.py:109-114): the kernel keeps ~80 registers per thread
 // and runs one thread per pixel. Tile depth L has no ceiling: instances
 // are staged in batches, so L=8192 needs the same 27 KB of shared memory
-// as L=128. Built with --fmad=false, like dense_forward.cu.
+// as L=128. Built with --fmad=false, like dense_forward.cu. The per-tile
+// body lives in composite_tile.cuh, shared with flat_backward.cu: this
+// entry only finds the tile's slab of the dense block.
 
 #include <cuda_runtime.h>
 
-#include "dense_common.cuh"
+#include "composite_tile.cuh"
 
 namespace {
 
 using namespace gftorf;
 
-constexpr int BATCH = 256;    // instances staged per batch: 24 KB of shared memory
-constexpr int MAX_PIX = 512;  // one thread per pixel
-constexpr int MAX_WARPS = MAX_PIX / 32;
-
 template <bool NEED_DD, bool HAS_FLOW>
-__global__ void __launch_bounds__(MAX_PIX)
+__global__ void __launch_bounds__(BWD_MAX_PIX)
 dense_backward_kernel(const float* __restrict__ feat,
                       const float* __restrict__ bg,
                       const float* __restrict__ out_res,
@@ -80,151 +78,17 @@ dense_backward_kernel(const float* __restrict__ feat,
                       float* __restrict__ dfeat,
                       int L, int tile_w, int width, int height) {
   __shared__ float s_feat[BATCH * FEAT];
-  __shared__ float s_part[2][MAX_WARPS][FEAT];
+  __shared__ float s_part[2 * BWD_MAX_WARPS * FEAT];
 
+  // Tile t's rows are lanes [0, counts[t]) of its (L, 24) slab; it owns
+  // all L of its dfeat rows.
   const int t = blockIdx.x;
-  const int pid = threadIdx.x;
-  const int pix = blockDim.x;
-  const int lane = pid & 31;
-  const int warp = pid >> 5;
-  const int nwarps = pix >> 5;
-  const int count = min(max(counts[t], 0), L);
-  const float px = (float)origins[2 * t] + (float)(pid % tile_w);
-  const float py = (float)origins[2 * t + 1] + (float)(pid / tile_w);
-  const bool inside = (px < (float)width) && (py < (float)height);
-
-  // This pixel's residuals, cotangent and bg (pallas_composite.py:462-486).
-  const size_t row = (size_t)t * pix + pid;
-  const float* o = out_res + row * OUTC;
-  const float* gr = grad + row * OUTC;
-  const float* b = bg + row * BGC;
-  float gc[4], gp[7], gf[6];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) gc[k] = gr[k];  // color 0:3, depth 3
-#pragma unroll
-  for (int k = 0; k < 7; ++k) gp[k] = gr[4 + k];
-#pragma unroll
-  for (int k = 0; k < 6; ++k) gf[k] = HAS_FLOW ? gr[20 + k] : 0.f;
-  const float g_acc = gr[11];
-  const float g_dd = NEED_DD ? gr[12] : 0.f;
-  const float t_final = o[13];
-  const float a_tot = o[17];
-  const float wz_tot = NEED_DD ? o[18] : 0.f;
-  const float wz2_tot = NEED_DD ? o[19] : 0.f;
-
-  float e_tot = 0.f;
-#pragma unroll
-  for (int k = 0; k < 3; ++k) e_tot += gc[k] * (o[k] - t_final * b[k]);
-  e_tot += gc[3] * o[3];
-  e_tot += g_acc * a_tot;
-  float ep_tot = 0.f;
-#pragma unroll
-  for (int k = 0; k < 7; ++k) ep_tot += gp[k] * (o[4 + k] - t_final * b[4 + k]);
-  const float u_dd_tot = g_dd * 2.0f * (a_tot * wz2_tot - wz_tot * wz_tot);
-  float bg_dot = 0.f;
-#pragma unroll
-  for (int k = 0; k < 3; ++k) bg_dot += b[k] * gc[k];
-  float bg_dot_p = 0.f;
-#pragma unroll
-  for (int k = 0; k < 7; ++k) bg_dot_p += b[4 + k] * gp[k];
-  bg_dot += bg_dot_p;
-
-  bool done = !inside;
-  float T = 1.0f, u_f = 0.f, u_p = 0.f, u_dd = 0.f;
-  const float* tile_feat = feat + (size_t)t * L * FEAT;
-  float* tile_dfeat = dfeat + (size_t)t * L * FEAT;
-  int base = 0;
-  for (; base < count; base += BATCH) {
-    if (__syncthreads_count(!done) == 0) break;
-    const int n = min(BATCH, count - base);
-    const float* src = tile_feat + (size_t)base * FEAT;
-    for (int i = pid; i < n * FEAT; i += pix) s_feat[i] = src[i];
-    __syncthreads();
-
-    for (int j = 0; j < n; ++j) {
-      const float* f = s_feat + j * FEAT;
-      float d[FEAT];  // this pixel's share of instance j's gradient row
-#pragma unroll
-      for (int c = 0; c < FEAT; ++c) d[c] = 0.f;
-      bool hit = false;
-      if (!done) {
-        const Sample s = eval_sample(f, px, py);
-        if (s.valid) {
-          const float t_next = next_transmittance(T, s.alpha);
-          if (t_next < T_STOP) {
-            done = true;
-          } else {
-            hit = true;
-            const float w = s.alpha * T;
-            const float wp = w * T;
-            const float q = 1.0f - s.alpha;
-            float e = 0.f;
-#pragma unroll
-            for (int k = 0; k < 4; ++k) e += gc[k] * f[7 + k];
-            e += g_acc;
-            float e_p = 0.f;
-#pragma unroll
-            for (int k = 0; k < 7; ++k) e_p += gp[k] * f[11 + k];
-            u_f += w * e;
-            u_p += wp * e_p;
-            float d_alpha = T * e - (e_tot - u_f) / q + T * T * e_p -
-                            2.0f * (ep_tot - u_p) / q - t_final / q * bg_dot;
-            if (NEED_DD) {
-              const float z = f[6];
-              const float sym = z * z * a_tot - 2.0f * z * wz_tot + wz2_tot;
-              u_dd += g_dd * w * sym;
-              d_alpha += g_dd * T * sym - (u_dd_tot - u_dd) / q;
-              d[6] = g_dd * 2.0f * w * (z * a_tot - wz_tot);
-            }
-            if (s.raw < ALPHA_MAX) {
-              const float d_power = d_alpha * s.alpha;
-              d[0] = d_power * -(f[2] * s.dx + f[3] * s.dy);
-              d[1] = d_power * -(f[4] * s.dy + f[3] * s.dx);
-              d[2] = -0.5f * s.dx * s.dx * d_power;
-              d[3] = -s.dx * s.dy * d_power;
-              d[4] = -0.5f * s.dy * s.dy * d_power;
-              d[5] = d_alpha * s.exp_p;
-            }
-#pragma unroll
-            for (int k = 0; k < 4; ++k) d[7 + k] = gc[k] * w;
-#pragma unroll
-            for (int k = 0; k < 7; ++k) d[11 + k] = gp[k] * wp;
-#pragma unroll
-            for (int k = 0; k < 6; ++k) d[18 + k] = gf[k] * w;
-            T = t_next;
-          }
-        }
-      }
-
-      // Fixed-order sum over the tile's pixels: shuffle tree per warp,
-      // then the warps' partials in warp order.
-      float* part = s_part[j & 1][warp];
-      if (__any_sync(FULL, hit)) {
-#pragma unroll
-        for (int c = 0; c < FEAT; ++c) {
-          const bool zero = (c == 6 && !NEED_DD) || (c >= 18 && !HAS_FLOW);
-          float v = zero ? 0.f : d[c];
-          if (!zero) {
-#pragma unroll
-            for (int off = 16; off > 0; off >>= 1)
-              v += __shfl_down_sync(FULL, v, off);
-          }
-          if (lane == 0) part[c] = v;
-        }
-      } else if (lane < FEAT) {
-        part[lane] = 0.f;
-      }
-      __syncthreads();
-      if (pid < FEAT) {
-        float sum = 0.f;
-        for (int w2 = 0; w2 < nwarps; ++w2) sum += s_part[j & 1][w2][pid];
-        tile_dfeat[(size_t)(base + j) * FEAT + pid] = sum;
-      }
-    }
-  }
-  // Rows never reached (early exit, or past the count) get zeros.
-  const int reached = min(base, count);
-  for (int i = reached * FEAT + pid; i < L * FEAT; i += pix) tile_dfeat[i] = 0.f;
+  const size_t row = (size_t)t * blockDim.x + threadIdx.x;
+  composite_tile_backward<NEED_DD, HAS_FLOW>(
+      feat + (size_t)t * L * FEAT, min(max(counts[t], 0), L), L,
+      pixel_of(origins, t, tile_w, width, height), bg + row * BGC,
+      out_res + row * OUTC, grad + row * OUTC, dfeat + (size_t)t * L * FEAT,
+      s_feat, s_part);
 }
 
 template <bool NEED_DD, bool HAS_FLOW>
@@ -250,7 +114,7 @@ extern "C" int gftorf_dense_backward(const float* feat, const float* bg,
                                      float* dfeat, int T, int L, int pix,
                                      int tile_w, int width, int height,
                                      int need_dd, int has_flow, void* stream) {
-  if (pix <= 0 || pix > MAX_PIX || pix % 32 != 0) return (int)cudaErrorInvalidValue;
+  if (pix <= 0 || pix > BWD_MAX_PIX || pix % 32 != 0) return (int)cudaErrorInvalidValue;
   const dim3 grid(T), block(pix);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (need_dd && has_flow)

@@ -50,17 +50,17 @@
 // Built with --fmad=false so each multiply and add rounds as the plain
 // PyTorch version's elementwise ops do. The alpha and transmittance step
 // lives in dense_common.cuh, shared with dense_backward.cu, so that the
-// backward latches the early exit exactly where this kernel did.
+// backward latches the early exit exactly where this kernel did. The
+// per-tile body lives in composite_tile.cuh, shared with flat_forward.cu:
+// this entry only finds the tile's slab of the dense block.
 
 #include <cuda_runtime.h>
 
-#include "dense_common.cuh"
+#include "composite_tile.cuh"
 
 namespace {
 
 using namespace gftorf;
-
-constexpr int BATCH = 256; // instances staged per batch: 24 KB of shared memory
 
 template <bool NEED_DD, bool NEED_DIST>
 __global__ void __launch_bounds__(1024)
@@ -74,110 +74,14 @@ dense_forward_kernel(const float* __restrict__ feat,
   __shared__ float s_feat[BATCH * FEAT];
   __shared__ int s_hits[BATCH];
 
+  // Tile t's rows are lanes [0, counts[t]) of its (L, 24) slab; it owns
+  // all L of its contrib lanes.
   const int t = blockIdx.x;
-  const int pid = threadIdx.x;
-  const int pix = blockDim.x;
-  const int lane = pid & 31;
-  const int count = min(max(counts[t], 0), L);
-  const float px = (float)origins[2 * t] + (float)(pid % tile_w);
-  const float py = (float)origins[2 * t + 1] + (float)(pid / tile_w);
-  const bool inside = (px < (float)width) && (py < (float)height);
-
-  bool done = !inside;
-  float T = 1.0f;
-  float color[3] = {0.f, 0.f, 0.f};
-  float phasor[7] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  float flow[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  float depth = 0.f, acc = 0.f;
-  float dd = 0.f, wz_run = 0.f, wz2_run = 0.f;
-  float first_alpha = 0.f, first_dist = 0.f, first_amp = 0.f;
-  bool has_first = false;
-
-  const float* tile_feat = feat + (size_t)t * L * FEAT;
-  float* tile_contrib = contrib + (size_t)t * L;
-  int base = 0;
-  for (; base < count; base += BATCH) {
-    if (__syncthreads_count(!done) == 0) break;
-    const int n = min(BATCH, count - base);
-    const float* src = tile_feat + (size_t)base * FEAT;
-    for (int i = pid; i < n * FEAT; i += pix) s_feat[i] = src[i];
-    for (int i = pid; i < n; i += pix) s_hits[i] = 0;
-    __syncthreads();
-
-    if (!__all_sync(FULL, done)) {
-      for (int j = 0; j < n; ++j) {
-        const float* g = s_feat + j * FEAT;
-        bool hit = false;
-        if (!done) {
-          const Sample smp = eval_sample(g, px, py);
-          if (smp.valid) {
-            const float alpha = smp.alpha;
-            const float t_next = next_transmittance(T, alpha);
-            if (t_next < T_STOP) {
-              done = true;
-            } else {
-              hit = true;
-              const float w = alpha * T;
-              const float wp = w * T;
-#pragma unroll
-              for (int k = 0; k < 3; ++k) color[k] += w * g[7 + k];
-              depth += w * g[10];
-#pragma unroll
-              for (int k = 0; k < 7; ++k) phasor[k] += wp * g[11 + k];
-#pragma unroll
-              for (int k = 0; k < 6; ++k) flow[k] += w * g[18 + k];
-              if (NEED_DD) {
-                const float z = g[6];
-                const float wz = w * z;
-                dd += w * (z * z) * acc - 2.0f * wz * wz_run + w * wz2_run;
-                wz_run += wz;
-                wz2_run += wz * z;
-              }
-              acc += w;
-              if (NEED_DIST && !has_first) {
-                first_alpha = alpha;
-                first_dist = g[10];
-                first_amp = g[13];
-                has_first = true;
-              }
-              T = t_next;
-            }
-          }
-        }
-        const unsigned ballot = __ballot_sync(FULL, hit);
-        if (lane == 0 && ballot) atomicAdd(&s_hits[j], __popc(ballot));
-      }
-    }
-    __syncthreads();
-    for (int i = pid; i < n; i += pix) tile_contrib[base + i] = (float)s_hits[i];
-  }
-  // Lanes never reached (early exit, or past the count) touched no pixel.
-  for (int i = min(base, count) + pid; i < L; i += pix) tile_contrib[i] = 0.f;
-
-  const float* b = bg + ((size_t)t * pix + pid) * BGC;
-  float o[OUTC];
-#pragma unroll
-  for (int k = 0; k < 3; ++k) o[k] = color[k] + T * b[k];
-  o[3] = depth;
-#pragma unroll
-  for (int k = 0; k < 7; ++k) o[4 + k] = phasor[k] + T * b[4 + k];
-  o[11] = acc;
-  o[12] = NEED_DD ? dd : 0.f;
-  o[13] = T;
-  o[14] = NEED_DIST ? first_alpha : 0.f;
-  o[15] = NEED_DIST ? first_dist : 0.f;
-  o[16] = NEED_DIST ? first_amp : 0.f;
-  o[17] = acc;
-  o[18] = NEED_DD ? wz_run : 0.f;
-  o[19] = NEED_DD ? wz2_run : 0.f;
-#pragma unroll
-  for (int k = 0; k < 6; ++k) o[20 + k] = flow[k];
-#pragma unroll
-  for (int k = 26; k < OUTC; ++k) o[k] = 0.f;
-  float4* dst = reinterpret_cast<float4*>(out + ((size_t)t * pix + pid) * OUTC);
-#pragma unroll
-  for (int k = 0; k < OUTC / 4; ++k)
-    dst[k] = make_float4(o[4 * k], o[4 * k + 1], o[4 * k + 2], o[4 * k + 3]);
+  const size_t row = (size_t)t * blockDim.x + threadIdx.x;
+  composite_tile_forward<NEED_DD, NEED_DIST>(
+      feat + (size_t)t * L * FEAT, min(max(counts[t], 0), L), L,
+      pixel_of(origins, t, tile_w, width, height), bg + row * BGC,
+      out + row * OUTC, contrib + (size_t)t * L, s_feat, s_hits);
 }
 
 }  // namespace

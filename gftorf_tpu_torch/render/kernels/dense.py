@@ -126,6 +126,20 @@ def unpack_outputs(out: torch.Tensor, contrib: torch.Tensor) -> TileOutputs:
     )
 
 
+def check_tensors(expect, dev) -> None:
+    """Raise unless each ``name: (tensor, dtype, shape)`` of ``expect`` is
+    a contiguous tensor of that dtype and shape on ``dev``: what a CUDA
+    wrapper checks before it hands pointers to its kernel."""
+    for name, (x, dtype, shape) in expect.items():
+        if x.device != dev or x.dtype != dtype or tuple(x.shape) != shape:
+            raise ValueError(
+                f"{name}: expected {dtype} {shape} on {dev}, got "
+                f"{x.dtype} {tuple(x.shape)} on {x.device}"
+            )
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
 def composite_forward(feat_tl, bg_tiles, counts, origins, config: RasterConfig):
     """Composite the packed (T, L, 24) block; returns (out (T, PIX, 32),
     contrib (T, L)). CUDA tensors run the Hopper kernel, CPU tensors the
@@ -266,14 +280,7 @@ def composite_forward_cuda(feat_tl, bg_tiles, counts, origins,
         "counts": (counts, torch.int32, (T,)),
         "origins": (origins, torch.int32, (T, 2)),
     }
-    for name, (x, dtype, shape) in expect.items():
-        if x.device != dev or x.dtype != dtype or tuple(x.shape) != shape:
-            raise ValueError(
-                f"{name}: expected {dtype} {shape} on {dev}, got "
-                f"{x.dtype} {tuple(x.shape)} on {x.device}"
-            )
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    check_tensors(expect, dev)
     out = torch.empty((T, pix, OUT_COLS), dtype=torch.float32, device=dev)
     contrib = torch.empty((T, L), dtype=torch.float32, device=dev)
     if T == 0:
@@ -447,14 +454,7 @@ def composite_backward_cuda(feat_tl, bg_tiles, out_res, g, counts, origins,
         "counts": (counts, torch.int32, (T,)),
         "origins": (origins, torch.int32, (T, 2)),
     }
-    for name, (x, dtype, shape) in expect.items():
-        if x.device != dev or x.dtype != dtype or tuple(x.shape) != shape:
-            raise ValueError(
-                f"{name}: expected {dtype} {shape} on {dev}, got "
-                f"{x.dtype} {tuple(x.shape)} on {x.device}"
-            )
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    check_tensors(expect, dev)
     dfeat = torch.empty((T, L, FEAT_COLS), dtype=torch.float32, device=dev)
     if T == 0:
         return dfeat
@@ -500,17 +500,31 @@ class DenseComposite(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_out, _g_contrib):
         feat_tl, bg_tiles, counts, origins, out = ctx.saved_tensors
-        g = g_out.clone()
-        g[..., 13:20] = 0.0
-        g[..., 26:] = 0.0
+        g = stopped_cotangent(g_out)
         dfeat = dbg = None
         if ctx.needs_input_grad[0]:
-            dfeat = composite_backward(feat_tl, bg_tiles, out, g.contiguous(),
-                                       counts, origins, ctx.config,
-                                       ctx.has_flow)
+            dfeat = composite_backward(feat_tl, bg_tiles, out, g, counts,
+                                       origins, ctx.config, ctx.has_flow)
         if ctx.needs_input_grad[1]:
-            t_final = out[..., 13:14]
-            dbg = torch.zeros_like(bg_tiles)
-            dbg[..., 0:3] = t_final * g[..., 0:3]
-            dbg[..., 4:11] = t_final * g[..., 4:11]
+            dbg = bg_grad(out, g, bg_tiles)
         return dfeat, dbg, None, None, None, None
+
+
+def stopped_cotangent(g_out: torch.Tensor) -> torch.Tensor:
+    """The output block's cotangent with columns 13:20 and 26:32 zeroed:
+    those columns are not differentiable (the JAX stop-gradients,
+    pallas_composite.py:773-774, flat_stream.py:563-564)."""
+    g = g_out.clone()
+    g[..., 13:20] = 0.0
+    g[..., 26:] = 0.0
+    return g.contiguous()
+
+
+def bg_grad(out: torch.Tensor, g: torch.Tensor, bg_tiles: torch.Tensor) -> torch.Tensor:
+    """Gradient w.r.t. the (T, PIX, 12) bg blocks: bg enters the output
+    times the frozen final T (column 13) on the color and phasor columns."""
+    t_final = out[..., 13:14]
+    dbg = torch.zeros_like(bg_tiles)
+    dbg[..., 0:3] = t_final * g[..., 0:3]
+    dbg[..., 4:11] = t_final * g[..., 4:11]
+    return dbg

@@ -4,7 +4,7 @@ Port of ``gftorf_tpu/render/settings.py``:
  - ``CameraSpec``: per-camera tensors (matrices, intrinsics, near/far,
    depth_range) on the device the render runs on.
  - ``RasterConfig``: static configuration (image size, tile shape, buffer
-   capacities, channel gates).
+   capacities, channel gates, dense or flat-stream layout).
  - ``RenderOutputs``: the rasterizer's outputs, the reference's tensor
    contract (rasterize_points.cu:80-98) minus its always-zero buffers.
 """
@@ -85,6 +85,15 @@ class RasterConfig:
     # Tiles per step of the plain (CPU) compositor: bounds its
     # (tiles, PIX, L) temporaries.
     tile_chunk: int = 32
+    # Flat sorted-stream compositor (render/kernels/flat.py): composite
+    # the depth-sorted duplicate stream, each tile's rows in one aligned
+    # segment, instead of the dense (T, max_per_tile) layout. Tile depth
+    # is unbounded (tile_overflow is 0; max_per_tile is not read). The
+    # port takes this path on either device: the Hopper kernels on a CUDA
+    # tensor, their plain versions on a CPU tensor. The JAX package takes
+    # it only on a TPU and renders dense on the CPU whatever the flag
+    # says; both layouts compute the same function.
+    flat_stream: bool = False
     # Static channel gates: when off, the RenderOutputs channel is exact
     # zeros and the compositor skips the work.
     need_dd: bool = True  # depth_distortion

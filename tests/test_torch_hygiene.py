@@ -36,7 +36,9 @@ def test_no_jax_import(path):
 
 
 def test_kernel_sources_and_no_import_time_builds():
-    assert (ROOT / "gftorf_tpu_torch" / "csrc" / "dense_forward.cu").exists()
+    for name in ("dense_forward", "dense_backward", "flat_forward",
+                 "flat_backward"):
+        assert (ROOT / "gftorf_tpu_torch" / "csrc" / f"{name}.cu").exists()
     for path in SOURCES:
         tree = ast.parse(path.read_text())
         for node in tree.body:  # module level only

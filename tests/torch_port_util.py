@@ -104,11 +104,15 @@ def deform_arrays(seed, depth, width, xyz_multires=10, t_multires=10,
             {k: f32(v) for k, v in head_b.items()})
 
 
-def statics(scene_type, cfg_color, cfg_tof, depth, width, sched=None, **kw):
+def statics(scene_type, cfg_color, cfg_tof, depth, width, sched=None,
+            flat_stream=False, **kw):
     """The same static configuration for both packages: (jax StepStatic,
     torch StepStatic). ``kw`` sets any StepStatic field (the loss switches
     default to the eval path's values); ``sched`` is a dict of SchedStatic
-    fields, with ``weights`` a dict of LossWeights fields."""
+    fields, with ``weights`` a dict of LossWeights fields. ``flat_stream``
+    sets the flag of both RasterConfigs in both packages: the port then
+    composites the flat stream, while the JAX package, on the CPU, renders
+    dense whatever the flag says (the same function)."""
     from gftorf_tpu.models.deform import DeformConfig as JDeform
     from gftorf_tpu.train.step import LossWeights as JWeights
     from gftorf_tpu.train.step import SchedStatic as JSched
@@ -134,6 +138,8 @@ def statics(scene_type, cfg_color, cfg_tof, depth, width, sched=None, **kw):
                                 else {"weights": JWeights(**weights)}))
     tsched = TSched(**sched, **({} if weights is None
                                 else {"weights": TWeights(**weights)}))
+    cfg_color = dict(cfg_color, flat_stream=flat_stream)
+    cfg_tof = dict(cfg_tof, flat_stream=flat_stream)
     j = JStatic(config_color=JConfig(**cfg_color), config_tof=JConfig(**cfg_tof),
                 deform=JDeform(depth=depth, width=width), sched=jsched,
                 **shared)
@@ -201,6 +207,56 @@ def packed_tile_inputs(seed, n=240, tile_w=16, max_per_tile=256, flow=True,
         bg_tiles=np.asarray(j_bg_to_tiles(jnp.asarray(bg), T, jcfg)),
         counts=np.asarray(b.tile_count),
         origins=np.asarray(j_origins(T, jcfg)),
+    )
+
+
+def packed_stream_inputs(seed, n=120, tile_w=16, flow=True, gates=True,
+                         width=64, height=48, crowd=False):
+    """JAX-preprocessed Gaussians binned into the aligned flat stream by
+    the JAX package (``bin_gaussians_flat``), their packed features
+    gathered into it (padding rows zero), as numpy: ``feat_fl``,
+    ``bg_tiles``, ``chunk_tile``, ``origins``, the (7, H, W) ``bg`` map,
+    the configs, and the port's ``tile_start`` / ``tile_count`` of the same
+    rects (tests/test_torch_flat_binning.py holds the two binnings equal).
+    With ``crowd`` two thirds of the Gaussians crowd the image centre, so
+    the tiles there span several FLAT_ALIGN blocks of the stream."""
+    from gftorf_tpu.render.binning import bin_gaussians_flat as j_bin_flat
+    from gftorf_tpu_torch.render.binning import bin_gaussians_flat as t_bin_flat
+
+    a = scene_arrays(seed, n)
+    if crowd:
+        a["xyz"][: 2 * n // 3, :2] *= 0.08
+        a["scaling"][: 2 * n // 3] -= 1.5
+    jcam, _ = cameras(width, height, seed=seed)
+    kw = dict(height=height, width=width, tile_h=16, tile_w=tile_w,
+              need_dd=gates, need_distribution=gates)
+    jcfg, tcfg = JConfig(**kw), TConfig(**kw, flat_stream=True)
+    opac = 1.0 / (1.0 + np.exp(-a["opacity"][:, 0]))
+    pre = j_pre(
+        jnp.asarray(a["xyz"]), jnp.exp(jnp.asarray(a["scaling"])),
+        jnp.asarray(a["rotation"]), jnp.asarray(opac), jnp.asarray(a["sh_color"]),
+        jnp.stack([jnp.asarray(a["sh_phase"]), jnp.asarray(a["sh_amp"])], -1),
+        np.float32(0.05), np.float32(0.02), jnp.zeros((n, 2)), jcam, jcfg, 3,
+    )
+    capacity = jcfg.capacity_for(n)
+    fb = j_bin_flat(pre.rect, pre.depth_view, pre.valid, jcfg, capacity)
+    tb = t_bin_flat(torch.tensor(np.asarray(pre.rect)),
+                    torch.tensor(np.asarray(pre.depth_view)),
+                    torch.tensor(np.asarray(pre.valid)), tcfg, capacity)
+    rng = np.random.default_rng(seed + 50)
+    flow_p = rng.normal(size=(n, 6)).astype(np.float32) if flow else None
+    packed = np.asarray(j_pack(pre, None if flow_p is None else jnp.asarray(flow_p)))
+    ids = np.asarray(fb.gauss_flat)
+    feat_fl = np.where((ids >= 0)[:, None], packed[np.maximum(ids, 0)], 0.0)
+    bg = rng.uniform(-1, 1, (7, height, width)).astype(np.float32)
+    T = jcfg.num_tiles
+    return dict(
+        jcfg=jcfg, tcfg=tcfg, bg=bg, packed=packed, gauss_flat=ids,
+        feat_fl=feat_fl.astype(np.float32),
+        bg_tiles=np.asarray(j_bg_to_tiles(jnp.asarray(bg), T, jcfg)),
+        chunk_tile=np.asarray(fb.chunk_tile),
+        origins=np.asarray(j_origins(T, jcfg)),
+        tile_start=tb.tile_start.numpy(), tile_count=tb.tile_count.numpy(),
     )
 
 
