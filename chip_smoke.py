@@ -22,6 +22,15 @@ Phases, each printing lines tagged with its name and raising on failure:
             ulps of T_STOP), and backward rows past the tolerance only in
             such lanes. Then one backward launch at L = 8192 (tile depth
             has no shared-memory ceiling), checked the same way.
+            The backward kernels' per-warp cull predicate (csrc/
+            warp_cull.cuh, through its C entry gftorf_warp_cull_mask)
+            against its plain version (equal) and brute force (no culled
+            row may have a valid pixel in the warp's rectangle, in float32
+            or float64), on boundary cases at tile_w 8, 16, 32 and a
+            ragged image; then two "grazing" blocks whose every row's 1/255
+            contour passes within 1e-3 px of a warp's rectangle, both
+            backward kernels against the plain version there, flat = dense
+            bitwise.
             The flat-stream kernels the same way, on seeded Gaussians binned
             by the port's bin_gaussians_flat (full width and the ragged
             image; gates and flow on and off): empty tiles, tiles spanning
@@ -67,14 +76,15 @@ Phases, each printing lines tagged with its name and raising on failure:
             tile_overflow > 0, flat reports 0; the flat frame equals the
             dense frame at an L that holds the deepest tile, and both flat
             kernels equal their dense twins there; logs the depth and the
-            flat kernels' times.
+            four kernels' times.
 6. determinism  a served frame rendered twice, and a training step run
             twice from one state with one generator seed, are bitwise equal,
             on the dense and on the flat path.
 7. timing   each kernel at the ftorf training shapes (CUDA events), its
             plain version, and the least time the card could take for the
             same work (bytes over 3.35 TB/s, fp32 operations over 67
-            TFLOP/s, counted from this run's data); the flat kernels on the
+            TFLOP/s, counted from this run's data), and the backward
+            kernels' blocks per SM, registers and spills; the flat kernels on the
             flat step's stream, and the work around the compositor that
             grows with the layout's rows (gather, its segment-sum backward,
             the flat gradient's zero-fill), dense against flat.
@@ -207,6 +217,191 @@ def synthetic_tiles(rng, config, L, flow, device):
             torch.tensor(origins, device=device))
 
 
+def random_conics(rng, n, sig_lo, sig_hi):
+    """(a, b, c) float64 conics of n Gaussians with axis sigmas drawn
+    log-uniform in [sig_lo, sig_hi] px, rotated uniformly."""
+    import numpy as np
+
+    s1 = np.exp(rng.uniform(np.log(sig_lo), np.log(sig_hi), n))
+    s2 = np.exp(rng.uniform(np.log(sig_lo), np.log(sig_hi), n))
+    th = rng.uniform(0, np.pi, n)
+    cs, sn = np.cos(th), np.sin(th)
+    # Inverse of R diag(s1^2, s2^2) R^T.
+    i1, i2 = 1.0 / (s1 * s1), 1.0 / (s2 * s2)
+    return cs * cs * i1 + sn * sn * i2, cs * sn * (i1 - i2), sn * sn * i1 + cs * cs * i2
+
+
+def contour_extent(a, b, c, o):
+    """Half-widths (hx, hy) of each row's exact 1/255 contour, and the
+    offsets of its extreme points: (dy at the x-extreme per unit of the
+    x direction, dx at the y-extreme), in float64."""
+    import numpy as np
+
+    eps = float(np.float32(1.0 / 255.0))
+    lam = np.log(np.asarray(o, np.float64) / eps)
+    det = a * c - b * b
+    t = np.sqrt(2.0 * lam / (c * det))
+    s = np.sqrt(2.0 * lam / (a * det))
+    return c * t, a * s, -b * t, -b * s
+
+
+def cull_cases(rng, width, height, tile_w, n_random=600, n_graze=600, tile_h=16):
+    """Boundary cases of the backward kernels' per-warp cull: packed rows
+    (n, 24) float32 and every warp rectangle (m, 4) float32 {x0, x1, y0,
+    y1} of a width x height image cut into tile_h x tile_w tiles (512 or
+    fewer pixels a tile). Sigmas 0.3-300 px, rotated; opacity from the
+    float just above 1/255 to 0.99. ``n_random`` rows lie anywhere near
+    the image; each of ``n_graze`` rows is placed so that its exact 1/255
+    contour passes within 1e-3 px (inside or outside) of an edge pixel of
+    one rectangle, at a pixel of that edge. Returns (rows, rects, graze)
+    with graze (n_graze, 2) int64 (row, rectangle) pairs."""
+    import numpy as np
+    import torch
+
+    from gftorf_tpu_torch.render.kernels.dense import warp_rects
+    from gftorf_tpu_torch.render.settings import RasterConfig
+
+    cfg = RasterConfig(height=height, width=width, tile_h=tile_h, tile_w=tile_w)
+    T = cfg.num_tiles
+    gw = cfg.grid_w
+    tid = np.arange(T)
+    origins = torch.tensor(np.stack([(tid % gw) * tile_w, (tid // gw) * tile_h],
+                                    -1).astype(np.int32))
+    rects = warp_rects(origins, tile_w, cfg.tile_pixels).reshape(-1, 4).numpy()
+    n = n_random + n_graze
+    a, b, c = random_conics(rng, n, 0.3, 300.0)
+    eps = np.float32(1.0 / 255.0)
+    o = np.exp(rng.uniform(np.log(float(eps) * 1.0001), np.log(0.99), n))
+    o[::5] = np.nextafter(eps, np.float32(1))  # just above 1/255
+    o = o.astype(np.float32)
+    mx = rng.uniform(-60, width + 60, n)
+    my = rng.uniform(-60, height + 60, n)
+    hx, hy, dy_x, dx_y = contour_extent(a, b, c, o)
+    q = rng.integers(0, rects.shape[0], n_graze)
+    side = rng.integers(0, 4, n_graze)
+    delta = rng.uniform(-1e-3, 1e-3, n_graze)
+    g = slice(n_random, n)
+    x0, x1, y0, y1 = (rects[q, k].astype(np.float64) for k in range(4))
+    px = np.floor(rng.uniform(x0, x1 + 1))  # an edge pixel of the rectangle
+    py = np.floor(rng.uniform(y0, y1 + 1))
+    # Left of the rectangle: the contour's right extreme, (mx + hx, my +
+    # dy_x), at (x0 - delta, py); right of it: the left extreme, (mx - hx,
+    # my - dy_x), at (x1 + delta, py); above and below alike with the
+    # bottom extreme (mx + dx_y, my + hy) and the top one.
+    gx = np.select([side == 0, side == 1, side == 2, side == 3],
+                   [x0 - delta - hx[g], x1 + delta + hx[g], px - dx_y[g],
+                    px + dx_y[g]])
+    gy = np.select([side == 0, side == 1, side == 2, side == 3],
+                   [py - dy_x[g], py + dy_x[g], y0 - delta - hy[g],
+                    y1 + delta + hy[g]])
+    mx[g], my[g] = gx, gy
+    rows = np.zeros((n, 24), np.float32)
+    rows[:, :6] = np.stack([mx, my, a, b, c, o], -1)
+    rows[:, 6:] = rng.uniform(-1, 1, (n, 18))
+    return rows, rects, np.stack([np.arange(n_random, n), q], -1)
+
+
+def any_valid(rows, rects, exact=False, chunk=256):
+    """(n, m) bool: some pixel of rectangle q is valid for row r under the
+    compositor's alpha (gftorf_tpu/render/composite.py:94-98, the kernels'
+    eval_sample): power <= 0 and min(0.99, o * exp(power)) >= 1/255, in
+    float32 with the kernels' order of operations, or in float64 with
+    ``exact``. Brute force over every pixel of every rectangle."""
+    import torch
+
+    from gftorf_tpu_torch.render.composite import ALPHA_EPS, ALPHA_MAX
+
+    dt = torch.float64 if exact else torch.float32
+    x0, x1, y0, y1 = rects.unbind(-1)
+    wmax, hmax = int((x1 - x0).max()) + 1, int((y1 - y0).max()) + 1
+    ox = torch.arange(wmax, device=rows.device, dtype=dt)
+    oy = torch.arange(hmax, device=rows.device, dtype=dt)
+    pxs = (x0.to(dt)[:, None, None] + ox[None, None, :]).expand(-1, hmax, -1)
+    pys = (y0.to(dt)[:, None, None] + oy[None, :, None]).expand(-1, -1, wmax)
+    inside = (pxs <= x1.to(dt)[:, None, None]) & (pys <= y1.to(dt)[:, None, None])
+    out = []
+    eps = torch.tensor(ALPHA_EPS, dtype=dt)
+    for r0 in range(0, rows.shape[0], chunk):
+        f = rows[r0:r0 + chunk, :6].to(dt)[:, None, None, None, :]
+        ddx = f[..., 0] - pxs
+        ddy = f[..., 1] - pys
+        power = (-0.5 * (f[..., 2] * ddx * ddx + f[..., 4] * ddy * ddy)
+                 - f[..., 3] * ddx * ddy)
+        alpha = torch.clamp(f[..., 5] * torch.exp(torch.clamp(power, max=0.0)),
+                            max=ALPHA_MAX)
+        valid = (power <= 0.0) & (alpha >= eps) & inside
+        out.append(valid.flatten(2).any(-1))
+    return torch.cat(out)
+
+
+def grazing_tiles(rng, config, L, flow, device):
+    """Like ``synthetic_tiles``, but every row sits on the backward's cull
+    boundary: its exact 1/255 contour passes within 1e-3 px (inside or
+    outside) of an edge pixel of one warp rectangle of its own tile (the
+    rows of ``cull_cases``)."""
+    import numpy as np
+    import torch
+
+    from gftorf_tpu_torch.render.kernels.dense import _bg_to_tiles, _default_origins
+
+    T = config.num_tiles
+    rows, rects, graze = cull_cases(rng, config.width, config.height,
+                                    config.tile_w, n_random=0, n_graze=T * L,
+                                    tile_h=config.tile_h)
+    # Rectangles run tile by tile: put each row in its rectangle's tile.
+    warps = rects.shape[0] // T
+    tile = graze[:, 1] // warps
+    feat = np.full((T, L, 24), np.nan, np.float32)
+    counts = rng.integers(1, L + 1, T)
+    counts[::7] = 0
+    counts[1::7] = L
+    for t in range(T):
+        mine = rows[tile == t][: counts[t]]
+        counts[t] = mine.shape[0]
+        if not flow:
+            mine[:, 18:] = 0.0
+        feat[t, : counts[t]] = mine
+    bg = rng.uniform(0, 1, (7, config.height, config.width)).astype(np.float32)
+    return (torch.tensor(feat, device=device),
+            _bg_to_tiles(torch.tensor(bg), T, config).to(device),
+            torch.tensor(counts, dtype=torch.int32, device=device),
+            _default_origins(T, config, device))
+
+
+def phase_cull(device):
+    """The backward kernels' cull predicate on the card (gftorf_warp_cull_
+    mask, csrc/warp_cull.cuh) against its plain version and brute force,
+    on cull_cases at tile_w 8, 16 and 32 and a ragged image."""
+    import numpy as np
+    import torch
+
+    from gftorf_tpu_torch.render.kernels import dense
+
+    rng = np.random.default_rng(SEED + 2)
+    for tw, w, h in ((8, 320, 240), (16, 320, 240), (32, 320, 240), (16, 250, 180)):
+        rows, rects, graze = cull_cases(rng, w, h, tw, n_random=2000, n_graze=2000)
+        rows = torch.tensor(rows, device=device)
+        rects = torch.tensor(rects, device=device)
+        got = dense.warp_cull_mask_cuda(rows, rects)
+        plain = dense.warp_cull_plain(rows, rects)
+        torch.cuda.synchronize()
+        differ = int((got != plain).sum())
+        bad = {exact: int((got & any_valid(rows, rects, exact=exact)).sum())
+               for exact in (False, True)}
+        gi = torch.tensor(graze, device=device)
+        kept = int((~got[gi[:, 0], gi[:, 1]]).sum())
+        what = (f"cull {w}x{h} tile_w {tw}: {rows.shape[0]} rows x "
+                f"{rects.shape[0]} rectangles")
+        if differ or bad[False] or bad[True] or kept != gi.shape[0]:
+            raise AssertionError(
+                f"{what}: {differ} pairs differ from warp_cull_plain, {bad[False]} "
+                f"({bad[True]} in float64) culled pairs with a valid pixel, "
+                f"{gi.shape[0] - kept} grazing pairs culled")
+        log("kernels", f"{what}: CUDA predicate equals warp_cull_plain; culled "
+            f"{int(got.sum())} of {got.numel()} pairs, none with a valid pixel "
+            f"(float32 or float64 brute force); all {kept} grazing pairs kept")
+
+
 def compare(out, contrib, ref_out, ref_contrib, what):
     """Kernel against plain: max |err|; raises past the tolerance."""
     import torch
@@ -299,6 +494,50 @@ def phase_kernels(device):
             f"{rows_b}")
     log("kernels", f"ok: {len(cases)} dense cases, max_abs_err forward "
         f"{worst['dense_forward']:.3g}, backward {worst['dense_backward']:.3g}")
+
+    phase_cull(device)
+    # Blocks whose every row sits on the cull boundary of a warp of its
+    # tile: both backward kernels against the plain version, flat = dense.
+    from gftorf_tpu_torch.render.kernels import flat
+
+    for cfg, flow in ((RasterConfig(height=240, width=320, tile_h=16, tile_w=32,
+                                    max_per_tile=256), True),
+                      (RasterConfig(height=180, width=250, tile_h=16, tile_w=16,
+                                    max_per_tile=256, need_dd=False,
+                                    need_distribution=False), False)):
+        L = cfg.max_per_tile
+        feat, bg, counts, origins = grazing_tiles(rng, cfg, L, flow, device)
+        out, contrib = dense.composite_forward_cuda(feat, bg, counts, origins, cfg)
+        ref_out, ref_contrib = dense.composite_forward_plain(feat, bg, counts,
+                                                             origins, cfg)
+        g = cotangent(rng, cfg, device)
+        dfeat = dense.composite_backward_cuda(feat, bg, out, g, counts, origins,
+                                              cfg, flow)
+        ref_dfeat = dense.composite_backward_plain(feat, bg, out, g, counts,
+                                                   origins, cfg, flow)
+        T = cfg.num_tiles
+        stream = feat.reshape(T * L, 24)
+        start = torch.arange(T, dtype=torch.int32, device=device) * L
+        fcfg = dataclasses.replace(cfg, flat_stream=True)
+        f_dfeat = flat.composite_backward_flat_cuda(stream, bg, out, g, start,
+                                                    counts, origins, fcfg, flow)
+        torch.cuda.synchronize()
+        what = (f"grazing {cfg.width}x{cfg.height} tiles {cfg.tile_h}x{cfg.tile_w} "
+                f"L={L} gates={cfg.need_dd} flow={flow}")
+        err, lanes = compare(out, contrib, ref_out, ref_contrib, what)
+        err_b, rows_b = compare_bwd(dfeat, ref_dfeat, lanes, what)
+        slot, present = flat.stream_slots(start, counts)
+        e_f, equal = compare_twins((None, f_dfeat), (None, dfeat[:, :slot.shape[1]]),
+                                   slot, present, what + " flat backward")
+        if not equal:
+            raise AssertionError(f"{what}: flat and dense backward differ ({e_f:.3g})")
+        worst["dense_forward"] = max(worst["dense_forward"], err)
+        for name in ("dense_backward", "flat_backward"):  # the same bits
+            worst[name] = max(worst[name], err_b)
+        log("kernels", f"{what}: instances {int(counts.sum())}; forward max_abs_err "
+            f"{err:.3g}, contrib lanes differing {lanes}; backward max_abs_err "
+            f"{err_b:.3g} (max |grad| {float(ref_dfeat.abs().max()):.3g}), rows past "
+            f"tolerance {rows_b}; flat backward on the same rows bitwise equal")
     return worst
 
 
@@ -1737,18 +1976,30 @@ def phase_timing(scenes, runs, flat_runs, worst, launches):
     counted = {"dense": f"{steps} steps",
                "flat": f"{steps} steps and {len(flat_runs)} first steps "
                        "compared with dense"}
+    # Blocks per SM, registers, spills and shared memory of the backward
+    # templates these shapes run.
+    occupancy = {
+        "dense_backward": dense.backward_occupancy(cfg.tile_pixels, cfg.need_dd,
+                                                   has_flow),
+        "flat_backward": flat.backward_occupancy(fcfg.tile_pixels, fcfg.need_dd,
+                                                 fhas_flow),
+    }
     kernels = []
     for name, (kernel, plain, (nbytes, ops), flow_on) in timings.items():
         ms = time_ms(kernel, 20)
         plain_ms = time_ms(plain, 2)
         b_ms, b_by, t_bytes, t_ops = bound(nbytes, ops)
+        occ = occupancy.get(name)
         log("timing", f"{name} at ftorf training shapes "
             f"({shapes[name.split('_')[0]]}, flow={flow_on}): {ms:.4f} ms; "
             f"plain {plain_ms:.3f} ms; bound {b_ms:.4f} ms ({nbytes} B -> "
             f"{t_bytes:.4f} ms, {ops} fp32 ops -> {t_ops:.4f} ms); launches in "
             f"the {'train-flat' if name.startswith('flat') else 'train'} phase "
             f"{launches[name]} over {counted[name.split('_')[0]]}; max_abs_err "
-            f"{worst[name]:.3g}")
+            f"{worst[name]:.3g}" + ("" if occ is None else
+            f"; {occ['blocks_per_sm']} block(s) of {cfg.tile_pixels} threads "
+            f"per SM, {occ['registers']} registers, {occ['spill_bytes']} B "
+            f"local, {occ['shared_bytes']} B shared (need_dd={cfg.need_dd})"))
         kernels.append(dict(
             name=name, route="cuda", source=f"gftorf_tpu_torch/csrc/{name}.cu",
             replaces=REPLACES[name], launches=launches[name],

@@ -14,8 +14,7 @@
 // Design. The Pallas kernel is a chunked prefix form (Hillis-Steele scans
 // over 128 lanes, MXU dot products) because of the TPU's lanes. Here it is
 // the sequential recurrence again: one block per tile, one thread per
-// pixel, instances staged through shared memory in batches of BATCH rows.
-// Each thread first forms its pixel's totals from the forward residuals
+// pixel. Each thread forms its pixel's totals from the forward residuals
 // and g (e_tot, ep_tot, u_dd_tot, bg_dot; pallas_composite.py:466-486),
 // then walks the tile's instances front to back, recomputing alpha and T
 // with the forward's own step (dense_common.cuh, so the early exit latches
@@ -27,37 +26,32 @@
 // d_dist_ndc (dd only), and the weighted color, distance, phasor and flow
 // gradients (flow with detached weights: no d_alpha term).
 //
-// The per-instance sum over the tile's pixels is deterministic: a fixed
-// warp-shuffle tree per column, lane 0 of each warp stores the warp's 24
-// partials in shared memory, and 24 threads add the warps' partials in
-// warp order and store the row. A warp none of whose pixels the instance
-// reached stores zeros without shuffling. There is no float atomicAdd;
-// the same inputs give the same bits on every run. The partials are
-// double-buffered by instance parity, so one barrier per instance
-// suffices. The block leaves when every pixel has stopped (checked per
-// batch): past that point every partial is zero, so where it stops does
-// not change the result.
+// The per-tile body (composite_tile.cuh, shared with flat_backward.cu;
+// this entry only finds the tile's slab) is built for Hopper: warps walk
+// 32-row sub-batches without a block barrier, two live rows at a time,
+// and reduce each row with one butterfly reduce-scatter into per-warp
+// partials, which all threads add in warp order once per sub-batch; each
+// warp skips the rows whose cull box (warp_cull.cuh) misses its pixels,
+// which is exact; batches of 256 rows are double-buffered by bulk copies.
+// The composite_tile.cuh notes say what bounded the first version and
+// what each of these does about it. There is no float atomicAdd: the
+// same inputs give the same bits on every run, and in both layouts.
 //
 // Bound on the H100: per tile one pass over the rows up to the early exit
 // (96 B each), 368 B of bg, residuals and cotangent per pixel, and 96 B
 // per lane of dfeat; against ~16 fp32 operations per evaluated (pixel,
 // instance) pair and ~96 more per contributing pair (79 for d_alpha and
 // the 24 gradient shares, 17 adds of the per-instance sums), +12 with
-// flow and +20 with dd. At the training shapes (150 tiles of 512 pixels,
-// L about 2,000) the operations dominate, so the bound is the fp32 rate
-// (67 TFLOP/s); chip_smoke.py computes it from each run's data. The
-// shuffle trees (5 per column per warp per instance) and the per-instance
-// barrier are the overhead this first, simple version pays: later work
-// can reduce 24 columns in one transposing butterfly, cull instances per
-// warp, and double-buffer the batches (cp.async/TMA).
+// flow and +20 with dd. That counts the function's work, not this
+// implementation's (culled pairs are work the function does not need);
+// chip_smoke.py computes it from each run's data. At the ftorf training
+// shapes the bytes bound it (PERF.md).
 //
 // At most 512 pixels per tile (the JAX backward has the same ceiling,
-// pallas_composite.py:109-114): the kernel keeps ~80 registers per thread
-// and runs one thread per pixel. Tile depth L has no ceiling: instances
-// are staged in batches, so L=8192 needs the same 27 KB of shared memory
-// as L=128. Built with --fmad=false, like dense_forward.cu. The per-tile
-// body lives in composite_tile.cuh, shared with flat_backward.cu: this
-// entry only finds the tile's slab of the dense block.
+// pallas_composite.py:109-114): the kernel runs one thread per pixel.
+// Tile depth L has no ceiling: instances are staged in batches, so L=8192
+// needs the same shared memory as L=128. Built with --fmad=false, like
+// dense_forward.cu.
 
 #include <cuda_runtime.h>
 
@@ -68,7 +62,7 @@ namespace {
 using namespace gftorf;
 
 template <bool NEED_DD, bool HAS_FLOW>
-__global__ void __launch_bounds__(BWD_MAX_PIX)
+__global__ void __launch_bounds__(BWD_MAX_PIX, BWD_MIN_BLOCKS)
 dense_backward_kernel(const float* __restrict__ feat,
                       const float* __restrict__ bg,
                       const float* __restrict__ out_res,
@@ -77,8 +71,7 @@ dense_backward_kernel(const float* __restrict__ feat,
                       const int* __restrict__ origins,
                       float* __restrict__ dfeat,
                       int L, int tile_w, int width, int height) {
-  __shared__ float s_feat[BATCH * FEAT];
-  __shared__ float s_part[2 * BWD_MAX_WARPS * FEAT];
+  extern __shared__ __align__(128) unsigned char smem[];
 
   // Tile t's rows are lanes [0, counts[t]) of its (L, 24) slab; it owns
   // all L of its dfeat rows.
@@ -86,28 +79,47 @@ dense_backward_kernel(const float* __restrict__ feat,
   const size_t row = (size_t)t * blockDim.x + threadIdx.x;
   composite_tile_backward<NEED_DD, HAS_FLOW>(
       feat + (size_t)t * L * FEAT, min(max(counts[t], 0), L), L,
-      pixel_of(origins, t, tile_w, width, height), bg + row * BGC,
-      out_res + row * OUTC, grad + row * OUTC, dfeat + (size_t)t * L * FEAT,
-      s_feat, s_part);
+      pixel_of(origins, t, tile_w, width, height),
+      warp_rect(origins, t, tile_w), bg + row * BGC, out_res + row * OUTC,
+      grad + row * OUTC, dfeat + (size_t)t * L * FEAT,
+      *reinterpret_cast<BwdShared*>(smem));
 }
 
 template <bool NEED_DD, bool HAS_FLOW>
-void launch(dim3 grid, dim3 block, cudaStream_t s, const float* feat,
-            const float* bg, const float* out_res, const float* grad,
-            const int* counts, const int* origins, float* dfeat, int L,
-            int tile_w, int width, int height) {
-  dense_backward_kernel<NEED_DD, HAS_FLOW><<<grid, block, 0, s>>>(
-      feat, bg, out_res, grad, counts, origins, dfeat, L, tile_w, width,
-      height);
+int launch(int T, int pix, cudaStream_t s, const float* feat, const float* bg,
+           const float* out_res, const float* grad, const int* counts,
+           const int* origins, float* dfeat, int L, int tile_w, int width,
+           int height) {
+  const auto kernel = dense_backward_kernel<NEED_DD, HAS_FLOW>;
+  const cudaError_t err = bwd_prepare(kernel);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<T, pix, sizeof(BwdShared), s>>>(feat, bg, out_res, grad, counts,
+                                           origins, dfeat, L, tile_w, width,
+                                           height);
+  return (int)cudaGetLastError();
+}
+
+// One thread per (row, rectangle) pair: out[r * m + q] = 1 when row r is
+// culled for rectangle q.
+__global__ void warp_cull_mask_kernel(const float* __restrict__ rows, int n,
+                                      const float* __restrict__ rects, int m,
+                                      unsigned char* __restrict__ out) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)n * m) return;
+  const long long r = i / m, q = i % m;
+  const float4 rect = make_float4(rects[4 * q], rects[4 * q + 1],
+                                  rects[4 * q + 2], rects[4 * q + 3]);
+  out[i] = culled(cull_box(rows + r * FEAT), rect) ? 1 : 0;
 }
 
 }  // namespace
 
-// C entry, bound with ctypes. feat (T, L, 24), bg (T, pix, 12), out_res and
-// grad (T, pix, 32), counts (T,) int32, origins (T, 2) int32, dfeat
-// (T, L, 24); all contiguous float32 (ints int32) on the current device.
-// pix is the block size: a multiple of 32, at most 512. Launches on
-// `stream` and returns cudaGetLastError() (0 = the launch was accepted).
+// C entry, bound with ctypes. feat (T, L, 24) 16-byte aligned, bg
+// (T, pix, 12), out_res and grad (T, pix, 32), counts (T,) int32, origins
+// (T, 2) int32, dfeat (T, L, 24); all contiguous float32 (ints int32) on
+// the current device. pix is the block size: a multiple of 32, at most
+// 512. Launches on `stream` and returns the first CUDA error (0 = the
+// launch was accepted).
 extern "C" int gftorf_dense_backward(const float* feat, const float* bg,
                                      const float* out_res, const float* grad,
                                      const int* counts, const int* origins,
@@ -115,19 +127,41 @@ extern "C" int gftorf_dense_backward(const float* feat, const float* bg,
                                      int tile_w, int width, int height,
                                      int need_dd, int has_flow, void* stream) {
   if (pix <= 0 || pix > BWD_MAX_PIX || pix % 32 != 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid(T), block(pix);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (need_dd && has_flow)
-    launch<true, true>(grid, block, s, feat, bg, out_res, grad, counts,
-                       origins, dfeat, L, tile_w, width, height);
-  else if (need_dd)
-    launch<true, false>(grid, block, s, feat, bg, out_res, grad, counts,
-                        origins, dfeat, L, tile_w, width, height);
-  else if (has_flow)
-    launch<false, true>(grid, block, s, feat, bg, out_res, grad, counts,
-                        origins, dfeat, L, tile_w, width, height);
-  else
-    launch<false, false>(grid, block, s, feat, bg, out_res, grad, counts,
-                         origins, dfeat, L, tile_w, width, height);
+    return launch<true, true>(T, pix, s, feat, bg, out_res, grad, counts,
+                              origins, dfeat, L, tile_w, width, height);
+  if (need_dd)
+    return launch<true, false>(T, pix, s, feat, bg, out_res, grad, counts,
+                               origins, dfeat, L, tile_w, width, height);
+  if (has_flow)
+    return launch<false, true>(T, pix, s, feat, bg, out_res, grad, counts,
+                               origins, dfeat, L, tile_w, width, height);
+  return launch<false, false>(T, pix, s, feat, bg, out_res, grad, counts,
+                              origins, dfeat, L, tile_w, width, height);
+}
+
+// The template's occupancy at `pix` threads a block: info[0] blocks per
+// SM, info[1] registers and info[2] local (spill) bytes per thread,
+// info[3] shared bytes per block. Returns the first CUDA error.
+extern "C" int gftorf_dense_backward_occupancy(int pix, int need_dd,
+                                               int has_flow, int* info) {
+  if (need_dd && has_flow) return bwd_occupancy(dense_backward_kernel<true, true>, pix, info);
+  if (need_dd) return bwd_occupancy(dense_backward_kernel<true, false>, pix, info);
+  if (has_flow) return bwd_occupancy(dense_backward_kernel<false, true>, pix, info);
+  return bwd_occupancy(dense_backward_kernel<false, false>, pix, info);
+}
+
+// The backward kernels' cull predicate (warp_cull.cuh) on n rows (n, 24)
+// and m rectangles (m, 4) float32 {x0, x1, y0, y1}; out (n, m) uint8.
+// Used by chip_smoke.py to hold the device predicate against its plain
+// version and brute force. Returns the first CUDA error.
+extern "C" int gftorf_warp_cull_mask(const float* rows, int n, const float* rects,
+                                     int m, unsigned char* out, void* stream) {
+  const long long pairs = (long long)n * m;
+  if (pairs <= 0) return 0;
+  const int threads = 256;
+  warp_cull_mask_kernel<<<(unsigned)((pairs + threads - 1) / threads), threads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(rows, n, rects, m, out);
   return (int)cudaGetLastError();
 }

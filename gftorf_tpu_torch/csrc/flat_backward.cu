@@ -13,13 +13,18 @@
 // Design. The TPU kernel carries the suffix-sum prefixes u_f, u_p, u_dd
 // and the transmittance in VMEM scratch from one stream chunk of a tile
 // to the next. Here one block owns one tile and walks its rows
-// [tile_start[t], tile_start[t] + tile_count[t]) in shared-memory
-// batches, with those carries in registers: the dense backward's per-tile
-// body (composite_tile.cuh) with another row base and count, so a tile
-// gives the same bits in both layouts. Per-instance sums over the tile's
-// pixels are the fixed-order warp-shuffle trees of that body, with no
-// float atomicAdd, so the same inputs give the same bits on every run.
-// The wrapper hands a zeroed dfeat (K, 24) and the block writes only its
+// [tile_start[t], tile_start[t] + tile_count[t]) with those carries in
+// registers: the dense backward's per-tile body (composite_tile.cuh) with
+// another row base and count, so a tile gives the same bits in both
+// layouts. That body (its notes say what bounded its first version and
+// what it does now) lets warps walk 32-row sub-batches with one barrier
+// each, two live rows at a time, reduces a row with one butterfly
+// reduce-scatter per warp, skips the rows whose cull box misses a warp's
+// pixels (warp_cull.cuh; exact) and double-buffers 256-row batches by
+// bulk copies (every batch starts on a row, so 16-byte aligned in a
+// 16-byte aligned stream). Its sums are in a fixed order, with no float
+// atomicAdd, so the same inputs give the same bits on every run. The
+// wrapper hands a zeroed dfeat (K, 24) and the block writes only its
 // tile's rows, so no block walks the stream's padding.
 //
 // Bound on the H100: one pass over the rows walked before each tile's
@@ -41,7 +46,7 @@ namespace {
 using namespace gftorf;
 
 template <bool NEED_DD, bool HAS_FLOW>
-__global__ void __launch_bounds__(BWD_MAX_PIX)
+__global__ void __launch_bounds__(BWD_MAX_PIX, BWD_MIN_BLOCKS)
 flat_backward_kernel(const float* __restrict__ feat,
                      const float* __restrict__ bg,
                      const float* __restrict__ out_res,
@@ -51,8 +56,7 @@ flat_backward_kernel(const float* __restrict__ feat,
                      const int* __restrict__ origins,
                      float* __restrict__ dfeat,
                      int K, int tile_w, int width, int height) {
-  __shared__ float s_feat[BATCH * FEAT];
-  __shared__ float s_part[2 * BWD_MAX_WARPS * FEAT];
+  extern __shared__ __align__(128) unsigned char smem[];
 
   // Tile t's rows are its stream segment [start, start + count); it owns
   // the dfeat rows of those rows. A range outside [0, K) is cut.
@@ -64,28 +68,35 @@ flat_backward_kernel(const float* __restrict__ feat,
   const size_t row = (size_t)t * blockDim.x + threadIdx.x;
   composite_tile_backward<NEED_DD, HAS_FLOW>(
       feat + (size_t)start * FEAT, count, count,
-      pixel_of(origins, t, tile_w, width, height), bg + row * BGC,
-      out_res + row * OUTC, grad + row * OUTC, dfeat + (size_t)start * FEAT,
-      s_feat, s_part);
+      pixel_of(origins, t, tile_w, width, height),
+      warp_rect(origins, t, tile_w), bg + row * BGC, out_res + row * OUTC,
+      grad + row * OUTC, dfeat + (size_t)start * FEAT,
+      *reinterpret_cast<BwdShared*>(smem));
 }
 
 template <bool NEED_DD, bool HAS_FLOW>
-void launch(int T, int pix, cudaStream_t s, const float* feat, const float* bg,
-            const float* out_res, const float* grad, const int* tile_start,
-            const int* tile_count, const int* origins, float* dfeat, int K,
-            int tile_w, int width, int height) {
-  flat_backward_kernel<NEED_DD, HAS_FLOW><<<T, pix, 0, s>>>(
-      feat, bg, out_res, grad, tile_start, tile_count, origins, dfeat, K,
-      tile_w, width, height);
+int launch(int T, int pix, cudaStream_t s, const float* feat, const float* bg,
+           const float* out_res, const float* grad, const int* tile_start,
+           const int* tile_count, const int* origins, float* dfeat, int K,
+           int tile_w, int width, int height) {
+  const auto kernel = flat_backward_kernel<NEED_DD, HAS_FLOW>;
+  const cudaError_t err = bwd_prepare(kernel);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<T, pix, sizeof(BwdShared), s>>>(feat, bg, out_res, grad, tile_start,
+                                           tile_count, origins, dfeat, K,
+                                           tile_w, width, height);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// C entry, bound with ctypes. feat (K, 24), bg (T, pix, 12), out_res and
-// grad (T, pix, 32), tile_start and tile_count (T,) int32, origins (T, 2)
-// int32, dfeat (K, 24) zeroed by the caller; all contiguous on the current
+// C entry, bound with ctypes. feat (K, 24) 16-byte aligned, bg (T, pix,
+// 12), out_res and grad (T, pix, 32), tile_start and tile_count (T,)
+// int32 (segments start at multiples of 256 rows), origins (T, 2) int32,
+// dfeat (K, 24) zeroed by the caller; all contiguous on the current
 // device. pix is the block size: a multiple of 32, at most 512. Launches
-// on `stream` and returns cudaGetLastError() (0 = the launch was accepted).
+// on `stream` and returns the first CUDA error (0 = the launch was
+// accepted).
 extern "C" int gftorf_flat_backward(const float* feat, const float* bg,
                                     const float* out_res, const float* grad,
                                     const int* tile_start,
@@ -96,16 +107,25 @@ extern "C" int gftorf_flat_backward(const float* feat, const float* bg,
   if (pix <= 0 || pix > BWD_MAX_PIX || pix % 32 != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (need_dd && has_flow)
-    launch<true, true>(T, pix, s, feat, bg, out_res, grad, tile_start,
-                       tile_count, origins, dfeat, K, tile_w, width, height);
-  else if (need_dd)
-    launch<true, false>(T, pix, s, feat, bg, out_res, grad, tile_start,
-                        tile_count, origins, dfeat, K, tile_w, width, height);
-  else if (has_flow)
-    launch<false, true>(T, pix, s, feat, bg, out_res, grad, tile_start,
-                        tile_count, origins, dfeat, K, tile_w, width, height);
-  else
-    launch<false, false>(T, pix, s, feat, bg, out_res, grad, tile_start,
-                         tile_count, origins, dfeat, K, tile_w, width, height);
-  return (int)cudaGetLastError();
+    return launch<true, true>(T, pix, s, feat, bg, out_res, grad, tile_start,
+                              tile_count, origins, dfeat, K, tile_w, width, height);
+  if (need_dd)
+    return launch<true, false>(T, pix, s, feat, bg, out_res, grad, tile_start,
+                               tile_count, origins, dfeat, K, tile_w, width, height);
+  if (has_flow)
+    return launch<false, true>(T, pix, s, feat, bg, out_res, grad, tile_start,
+                               tile_count, origins, dfeat, K, tile_w, width, height);
+  return launch<false, false>(T, pix, s, feat, bg, out_res, grad, tile_start,
+                              tile_count, origins, dfeat, K, tile_w, width, height);
+}
+
+// The template's occupancy at `pix` threads a block: info[0] blocks per
+// SM, info[1] registers and info[2] local (spill) bytes per thread,
+// info[3] shared bytes per block. Returns the first CUDA error.
+extern "C" int gftorf_flat_backward_occupancy(int pix, int need_dd,
+                                              int has_flow, int* info) {
+  if (need_dd && has_flow) return bwd_occupancy(flat_backward_kernel<true, true>, pix, info);
+  if (need_dd) return bwd_occupancy(flat_backward_kernel<true, false>, pix, info);
+  if (has_flow) return bwd_occupancy(flat_backward_kernel<false, true>, pix, info);
+  return bwd_occupancy(flat_backward_kernel<false, false>, pix, info);
 }

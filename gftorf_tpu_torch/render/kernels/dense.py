@@ -14,7 +14,10 @@ device: a CUDA tensor goes through the kernel (or the call raises), a CPU
 tensor through ``composite_forward_plain`` / ``composite_backward_plain``,
 the same functions in vectorised torch. ``DenseComposite`` is the
 ``torch.autograd.Function`` in place of the JAX package's custom VJP
-(``_make_pallas_vjp`` / ``_run_pallas_vjp``).
+(``_make_pallas_vjp`` / ``_run_pallas_vjp``). ``warp_cull_plain`` and
+``warp_rects`` are the backward kernels' per-warp cull
+(``csrc/warp_cull.cuh``) in torch, for the tests and chip_smoke.py;
+``warp_cull_mask_cuda`` runs the kernels' own predicate on the card.
 
 Packed feature columns (pack_gaussian_features):
   0:2 mean2d | 2:5 conic | 5 opacity | 6 dist_ndc
@@ -38,6 +41,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import NamedTuple
 
 import torch
@@ -414,6 +418,123 @@ def composite_backward_plain(feat_tl, bg_tiles, out_res, g, counts, origins,
     return dfeat
 
 
+# csrc/warp_cull.cuh's constants (its notes derive them).
+CULL_GAMMA = 4e-6
+CULL_DET_FLOOR = 1e-9
+CULL_LEVEL_SLACK = 1e-5
+CULL_REL_MARGIN = 1e-3
+CULL_PIXEL_MARGIN = 0.5
+
+
+def _f32_outward(x: torch.Tensor, down: bool) -> torch.Tensor:
+    """float64 -> float32 rounded towards -inf (``down``) or +inf, as
+    ``__double2float_rd`` / ``__double2float_ru``."""
+    f = x.to(torch.float32)
+    if down:
+        return torch.where(f.double() > x, torch.nextafter(f, f.new_tensor(-math.inf)), f)
+    return torch.where(f.double() < x, torch.nextafter(f, f.new_tensor(math.inf)), f)
+
+
+def warp_cull_boxes_plain(rows: torch.Tensor) -> torch.Tensor:
+    """(n, 24) packed rows -> (n, 4) float32 cull boxes {x_lo, x_hi, y_lo,
+    y_hi}: ``csrc/warp_cull.cuh::cull_box`` formula for formula (float64
+    inside, rounded outwards). No pixel outside a row's box is valid."""
+    g = rows[:, :6]
+    mx, my, a, b, c, o = g.unbind(-1)
+    da, db, dc = a.double(), b.double(), c.double()
+    det = da * dc - db * db
+    det_l = da * dc * ((1.0 - CULL_GAMMA) * (1.0 - CULL_GAMMA)) - db * db * (
+        (1.0 + CULL_GAMMA) * (1.0 + CULL_GAMMA))
+    # The order of cull_box's tests: never cull a non-finite or not
+    # positive definite row; always cull a faint one; else the box, unless
+    # det' is not clearly positive.
+    unsure = ~torch.isfinite(g).all(-1) | ~(a > 0) | ~(det > 0)
+    eps = torch.tensor(ALPHA_EPS, dtype=torch.float32)
+    faint = ~unsure & (o < eps)
+    keep = unsure | ~(det_l > CULL_DET_FLOOR * (da * dc))
+    level = (2.0 * (torch.log(o.double() / float(eps)) + CULL_LEVEL_SLACK)
+             * (1.0 + CULL_REL_MARGIN))
+    hx = torch.sqrt(level * dc * (1.0 - CULL_GAMMA) / det_l) + CULL_PIXEL_MARGIN
+    hy = torch.sqrt(level * da * (1.0 - CULL_GAMMA) / det_l) + CULL_PIXEL_MARGIN
+    box = torch.stack([_f32_outward(mx.double() - hx, True),
+                       _f32_outward(mx.double() + hx, False),
+                       _f32_outward(my.double() - hy, True),
+                       _f32_outward(my.double() + hy, False)], -1)
+    inf = math.inf
+    box = torch.where(keep[:, None], box.new_tensor([-inf, inf, -inf, inf]), box)
+    return torch.where(faint[:, None], box.new_tensor([inf, -inf, inf, -inf]), box)
+
+
+def warp_cull_plain(rows: torch.Tensor, rects: torch.Tensor) -> torch.Tensor:
+    """(n, m) bool: row r is culled for pixel rectangle q (``rects`` (m, 4)
+    float32 {x0, x1, y0, y1}, inclusive pixel coordinates). The plain
+    version of the backward kernels' per-warp cull (csrc/warp_cull.cuh);
+    used by the tests and chip_smoke.py, not by the compositor."""
+    box = warp_cull_boxes_plain(rows)[:, None, :]
+    r = rects[None, :, :]
+    return ((box[..., 1] < r[..., 0]) | (box[..., 0] > r[..., 1])
+            | (box[..., 3] < r[..., 2]) | (box[..., 2] > r[..., 3]))
+
+
+def warp_rects(origins: torch.Tensor, tile_w: int, pix: int) -> torch.Tensor:
+    """(T, pix // 32, 4) float32 pixel rectangle {x0, x1, y0, y1} of each
+    warp of each tile's block (``csrc/warp_cull.cuh::warp_rect``): warp w
+    holds pixels [32 w, 32 w + 32) of the tile, pixel i at (i % tile_w,
+    i // tile_w) from the tile's corner."""
+    first = torch.arange(0, pix, 32, device=origins.device)
+    last = first + 31
+    y0, y1 = first // tile_w, last // tile_w
+    one_row = y0 == y1
+    x0 = torch.where(one_row, first % tile_w, 0)
+    x1 = torch.where(one_row, last % tile_w, tile_w - 1)
+    ox = origins[:, 0:1].to(torch.float32)
+    oy = origins[:, 1:2].to(torch.float32)
+    return torch.stack([ox + x0, ox + x1, oy + y0, oy + y1], -1)
+
+
+def warp_cull_mask_cuda(rows: torch.Tensor, rects: torch.Tensor) -> torch.Tensor:
+    """The CUDA cull predicate (``gftorf_warp_cull_mask``, built with the
+    dense backward) on the card: (n, m) bool, as ``warp_cull_plain``."""
+    n, m = rows.shape[0], rects.shape[0]
+    dev = rows.device
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernel takes CUDA tensors, got {dev}")
+    check_tensors({"rows": (rows, torch.float32, (n, FEAT_COLS)),
+                   "rects": (rects, torch.float32, (m, 4))}, dev)
+    out = torch.empty((n, m), dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        err = _lib_backward().gftorf_warp_cull_mask(
+            rows.data_ptr(), n, rects.data_ptr(), m, out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"warp_cull_mask kernel launch failed: cudaError {err}")
+    return out.bool()
+
+
+def occupancy(fn, pix: int, need_dd: bool, has_flow: bool) -> dict:
+    """What a backward C entry's ``*_occupancy`` reports for one template
+    at ``pix`` threads a block, on the current card."""
+    info = (ctypes.c_int * 4)()
+    err = fn(pix, int(need_dd), int(has_flow), info)
+    if err != 0:
+        raise RuntimeError(f"occupancy query failed: cudaError {err}")
+    return dict(blocks_per_sm=info[0], registers=info[1], spill_bytes=info[2],
+                shared_bytes=info[3])
+
+
+def backward_occupancy(pix: int, need_dd: bool, has_flow: bool) -> dict:
+    """Blocks per SM, registers, local bytes per thread and shared bytes
+    per block of csrc/dense_backward.cu's template on the current card."""
+    return occupancy(_lib_backward().gftorf_dense_backward_occupancy, pix,
+                     need_dd, has_flow)
+
+
+def aligned16(x: torch.Tensor) -> torch.Tensor:
+    """``x``, or a copy of it whose data starts on a 16-byte boundary, as
+    the backward kernels' bulk copies need."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 @functools.cache
 def _lib_backward() -> ctypes.CDLL:
     from gftorf_tpu_torch.render.kernels.build import library
@@ -421,6 +542,13 @@ def _lib_backward() -> ctypes.CDLL:
     lib = library("dense_backward")
     fn = lib.gftorf_dense_backward
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fn = lib.gftorf_dense_backward_occupancy
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fn = lib.gftorf_warp_cull_mask
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
@@ -455,6 +583,7 @@ def composite_backward_cuda(feat_tl, bg_tiles, out_res, g, counts, origins,
         "origins": (origins, torch.int32, (T, 2)),
     }
     check_tensors(expect, dev)
+    feat_tl = aligned16(feat_tl)
     dfeat = torch.empty((T, L, FEAT_COLS), dtype=torch.float32, device=dev)
     if T == 0:
         return dfeat

@@ -225,7 +225,17 @@ def _lib_backward() -> ctypes.CDLL:
     fn = lib.gftorf_flat_backward
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    fn = lib.gftorf_flat_backward_occupancy
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     return lib
+
+
+def backward_occupancy(pix: int, need_dd: bool, has_flow: bool) -> dict:
+    """Blocks per SM, registers, local bytes per thread and shared bytes
+    per block of csrc/flat_backward.cu's template on the current card."""
+    return dense.occupancy(_lib_backward().gftorf_flat_backward_occupancy, pix,
+                           need_dd, has_flow)
 
 
 def composite_backward_flat_cuda(feat_fl, bg_tiles, out_res, g, tile_start,
@@ -244,6 +254,7 @@ def composite_backward_flat_cuda(feat_fl, bg_tiles, out_res, g, tile_start,
             "are unaffected")
     K, T, dev = _check_stream(feat_fl, bg_tiles, tile_start, tile_count,
                               origins, pix, (("out_res", out_res), ("g", g)))
+    feat_fl = dense.aligned16(feat_fl)
     # Rows no tile walks (padding, the tail) stay 0.
     dfeat = torch.zeros((K, FEAT_COLS), dtype=torch.float32, device=dev)
     if T == 0:

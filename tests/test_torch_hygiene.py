@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``gftorf_tpu_torch`` and not
-``chip_smoke.py`` imports JAX or anything of the JAX package, and no
-module builds or loads a kernel when it is imported."""
+"""The port stands alone: no module of ``gftorf_tpu_torch`` and neither
+``chip_smoke.py`` nor ``chip_bwd_ab.py`` imports JAX or anything of the
+JAX package, and no module builds or loads a kernel when it is
+imported."""
 
 import ast
 import pathlib
@@ -9,7 +10,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SOURCES = sorted((ROOT / "gftorf_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "chip_bwd_ab.py"]
 FORBIDDEN = ("jax", "jaxlib", "gftorf_tpu")
 
 
@@ -39,6 +40,7 @@ def test_kernel_sources_and_no_import_time_builds():
     for name in ("dense_forward", "dense_backward", "flat_forward",
                  "flat_backward"):
         assert (ROOT / "gftorf_tpu_torch" / "csrc" / f"{name}.cu").exists()
+    assert (ROOT / "gftorf_tpu_torch" / "csrc" / "warp_cull.cuh").exists()
     for path in SOURCES:
         tree = ast.parse(path.read_text())
         for node in tree.body:  # module level only
