@@ -21,15 +21,18 @@ Phases, each printing lines tagged with its name and raising on failure:
             1e-4 of the lanes (the lanes whose transmittance lies within
             ulps of T_STOP), and backward rows past the tolerance only in
             such lanes. Then one backward launch at L = 8192 (tile depth
-            has no shared-memory ceiling), checked the same way.
-            The backward kernels' per-warp cull predicate (csrc/
-            warp_cull.cuh, through its C entry gftorf_warp_cull_mask)
-            against its plain version (equal) and brute force (no culled
-            row may have a valid pixel in the warp's rectangle, in float32
-            or float64), on boundary cases at tile_w 8, 16, 32 and a
-            ragged image; then two "grazing" blocks whose every row's 1/255
-            contour passes within 1e-3 px of a warp's rectangle, both
-            backward kernels against the plain version there, flat = dense
+            has no shared-memory ceiling), checked the same way, and the
+            forward alone at 32x32 tiles (its 1024-thread instance) and at
+            8x12 tiles (where its warps cannot hold 8x4 pixel blocks).
+            The kernels' per-warp cull predicate (csrc/warp_cull.cuh,
+            through its C entry gftorf_warp_cull_mask) against its plain
+            version (equal) and brute force (no culled row may have a
+            valid pixel in the warp's rectangle, in float32 or float64), on
+            boundary cases at tile_w 8, 16, 32, a ragged image and the
+            forward's 8x4 rectangles; then "grazing" blocks whose every
+            row's 1/255 contour passes within 1e-3 px of a warp's rectangle
+            (the backward's 16x2 or 32x1 ones, or the forward's 8x4), all
+            four kernels against the plain versions there, flat = dense
             bitwise.
             The flat-stream kernels the same way, on seeded Gaussians binned
             by the port's bin_gaussians_flat (full width and the ragged
@@ -83,11 +86,12 @@ Phases, each printing lines tagged with its name and raising on failure:
 7. timing   each kernel at the ftorf training shapes (CUDA events), its
             plain version, and the least time the card could take for the
             same work (bytes over 3.35 TB/s, fp32 operations over 67
-            TFLOP/s, counted from this run's data), and the backward
-            kernels' blocks per SM, registers and spills; the flat kernels on the
-            flat step's stream, and the work around the compositor that
-            grows with the layout's rows (gather, its segment-sum backward,
-            the flat gradient's zero-fill), dense against flat.
+            TFLOP/s, counted from this run's data), and each kernel's
+            blocks per SM, registers, spills and shared memory; the flat
+            kernels on the flat step's stream, and the work around the
+            compositor that grows with the layout's rows (gather, its
+            segment-sum backward, the flat gradient's zero-fill), dense
+            against flat.
 
 ``python3 chip_smoke.py --profile`` adds a breakdown of a served frame by
 stage and the device's share of a training step under torch.profiler,
@@ -102,6 +106,7 @@ the repository, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import math
 import os
@@ -245,11 +250,13 @@ def contour_extent(a, b, c, o):
     return c * t, a * s, -b * t, -b * s
 
 
-def cull_cases(rng, width, height, tile_w, n_random=600, n_graze=600, tile_h=16):
-    """Boundary cases of the backward kernels' per-warp cull: packed rows
-    (n, 24) float32 and every warp rectangle (m, 4) float32 {x0, x1, y0,
-    y1} of a width x height image cut into tile_h x tile_w tiles (512 or
-    fewer pixels a tile). Sigmas 0.3-300 px, rotated; opacity from the
+def cull_cases(rng, width, height, tile_w, n_random=600, n_graze=600, tile_h=16,
+               blocks=False):
+    """Boundary cases of the kernels' per-warp cull: packed rows (n, 24)
+    float32 and every warp rectangle (m, 4) float32 {x0, x1, y0, y1} of a
+    width x height image cut into tile_h x tile_w tiles (512 or fewer
+    pixels a tile), under the backward's map of threads to pixels or, with
+    ``blocks``, the forward's (dense.warp_pixels). Sigmas 0.3-300 px, rotated; opacity from the
     float just above 1/255 to 0.99. ``n_random`` rows lie anywhere near
     the image; each of ``n_graze`` rows is placed so that its exact 1/255
     contour passes within 1e-3 px (inside or outside) of an edge pixel of
@@ -267,7 +274,7 @@ def cull_cases(rng, width, height, tile_w, n_random=600, n_graze=600, tile_h=16)
     tid = np.arange(T)
     origins = torch.tensor(np.stack([(tid % gw) * tile_w, (tid // gw) * tile_h],
                                     -1).astype(np.int32))
-    rects = warp_rects(origins, tile_w, cfg.tile_pixels).reshape(-1, 4).numpy()
+    rects = warp_rects(origins, tile_w, cfg.tile_pixels, blocks).reshape(-1, 4).numpy()
     n = n_random + n_graze
     a, b, c = random_conics(rng, n, 0.3, 300.0)
     eps = np.float32(1.0 / 255.0)
@@ -334,11 +341,12 @@ def any_valid(rows, rects, exact=False, chunk=256):
     return torch.cat(out)
 
 
-def grazing_tiles(rng, config, L, flow, device):
-    """Like ``synthetic_tiles``, but every row sits on the backward's cull
-    boundary: its exact 1/255 contour passes within 1e-3 px (inside or
-    outside) of an edge pixel of one warp rectangle of its own tile (the
-    rows of ``cull_cases``)."""
+def grazing_tiles(rng, config, L, flow, device, blocks=False):
+    """Like ``synthetic_tiles``, but every row sits on a cull boundary:
+    its exact 1/255 contour passes within 1e-3 px (inside or outside) of an
+    edge pixel of one warp rectangle of its own tile (the rows of
+    ``cull_cases``), under the backward's map of threads to pixels or,
+    with ``blocks``, the forward's."""
     import numpy as np
     import torch
 
@@ -347,7 +355,7 @@ def grazing_tiles(rng, config, L, flow, device):
     T = config.num_tiles
     rows, rects, graze = cull_cases(rng, config.width, config.height,
                                     config.tile_w, n_random=0, n_graze=T * L,
-                                    tile_h=config.tile_h)
+                                    tile_h=config.tile_h, blocks=blocks)
     # Rectangles run tile by tile: put each row in its rectangle's tile.
     warps = rects.shape[0] // T
     tile = graze[:, 1] // warps
@@ -369,17 +377,21 @@ def grazing_tiles(rng, config, L, flow, device):
 
 
 def phase_cull(device):
-    """The backward kernels' cull predicate on the card (gftorf_warp_cull_
-    mask, csrc/warp_cull.cuh) against its plain version and brute force,
-    on cull_cases at tile_w 8, 16 and 32 and a ragged image."""
+    """The kernels' cull predicate on the card (gftorf_warp_cull_mask,
+    csrc/warp_cull.cuh) against its plain version and brute force, on
+    cull_cases at tile_w 8, 16 and 32 and a ragged image, and on the
+    forward's 8x4 warp rectangles."""
     import numpy as np
     import torch
 
     from gftorf_tpu_torch.render.kernels import dense
 
     rng = np.random.default_rng(SEED + 2)
-    for tw, w, h in ((8, 320, 240), (16, 320, 240), (32, 320, 240), (16, 250, 180)):
-        rows, rects, graze = cull_cases(rng, w, h, tw, n_random=2000, n_graze=2000)
+    for tw, w, h, blocks in ((8, 320, 240, False), (16, 320, 240, False),
+                             (32, 320, 240, False), (16, 250, 180, False),
+                             (32, 320, 240, True)):
+        rows, rects, graze = cull_cases(rng, w, h, tw, n_random=2000, n_graze=2000,
+                                        blocks=blocks)
         rows = torch.tensor(rows, device=device)
         rects = torch.tensor(rects, device=device)
         got = dense.warp_cull_mask_cuda(rows, rects)
@@ -390,8 +402,8 @@ def phase_cull(device):
                for exact in (False, True)}
         gi = torch.tensor(graze, device=device)
         kept = int((~got[gi[:, 0], gi[:, 1]]).sum())
-        what = (f"cull {w}x{h} tile_w {tw}: {rows.shape[0]} rows x "
-                f"{rects.shape[0]} rectangles")
+        what = (f"cull {w}x{h} tile_w {tw}{' (8x4 blocks)' if blocks else ''}: "
+                f"{rows.shape[0]} rows x {rects.shape[0]} rectangles")
         if differ or bad[False] or bad[True] or kept != gi.shape[0]:
             raise AssertionError(
                 f"{what}: {differ} pairs differ from warp_cull_plain, {bad[False]} "
@@ -495,18 +507,39 @@ def phase_kernels(device):
     log("kernels", f"ok: {len(cases)} dense cases, max_abs_err forward "
         f"{worst['dense_forward']:.3g}, backward {worst['dense_backward']:.3g}")
 
+    # Forward only: 32x32 tiles (the forward's instance for blocks of 1024
+    # threads; the backward takes at most 512 pixels) and 8x12 tiles (12 is
+    # no multiple of 8: the forward's warps hold consecutive pixels).
+    for cfg in (RasterConfig(height=240, width=320, tile_h=32, tile_w=32,
+                             max_per_tile=1024),
+                RasterConfig(height=100, width=90, tile_h=8, tile_w=12,
+                             max_per_tile=384)):
+        args = synthetic_tiles(rng, cfg, cfg.max_per_tile, True, device)
+        out, contrib = dense.composite_forward_cuda(*args, cfg)
+        ref_out, ref_contrib = dense.composite_forward_plain(*args, cfg)
+        torch.cuda.synchronize()
+        what = (f"{cfg.width}x{cfg.height} tiles {cfg.tile_h}x{cfg.tile_w} "
+                f"L={cfg.max_per_tile} gates={cfg.need_dd} flow=True")
+        err, lanes = compare(out, contrib, ref_out, ref_contrib, what)
+        worst["dense_forward"] = max(worst["dense_forward"], err)
+        log("kernels", f"{what}: forward max_abs_err {err:.3g}, contrib lanes "
+            f"differing {lanes} of {contrib.numel()}")
+
     phase_cull(device)
     # Blocks whose every row sits on the cull boundary of a warp of its
-    # tile: both backward kernels against the plain version, flat = dense.
+    # tile, under the backward's map of threads to pixels and under the
+    # forward's: all four kernels against the plain versions, flat = dense.
     from gftorf_tpu_torch.render.kernels import flat
 
-    for cfg, flow in ((RasterConfig(height=240, width=320, tile_h=16, tile_w=32,
-                                    max_per_tile=256), True),
-                      (RasterConfig(height=180, width=250, tile_h=16, tile_w=16,
-                                    max_per_tile=256, need_dd=False,
-                                    need_distribution=False), False)):
+    for (cfg, flow), blocks in itertools.product(
+            ((RasterConfig(height=240, width=320, tile_h=16, tile_w=32,
+                           max_per_tile=256), True),
+             (RasterConfig(height=180, width=250, tile_h=16, tile_w=16,
+                           max_per_tile=256, need_dd=False,
+                           need_distribution=False), False)),
+            (False, True)):
         L = cfg.max_per_tile
-        feat, bg, counts, origins = grazing_tiles(rng, cfg, L, flow, device)
+        feat, bg, counts, origins = grazing_tiles(rng, cfg, L, flow, device, blocks)
         out, contrib = dense.composite_forward_cuda(feat, bg, counts, origins, cfg)
         ref_out, ref_contrib = dense.composite_forward_plain(feat, bg, counts,
                                                              origins, cfg)
@@ -519,25 +552,34 @@ def phase_kernels(device):
         stream = feat.reshape(T * L, 24)
         start = torch.arange(T, dtype=torch.int32, device=device) * L
         fcfg = dataclasses.replace(cfg, flat_stream=True)
+        f_out, f_contrib = flat.composite_forward_flat_cuda(stream, bg, start, counts,
+                                                            origins, fcfg)
         f_dfeat = flat.composite_backward_flat_cuda(stream, bg, out, g, start,
                                                     counts, origins, fcfg, flow)
         torch.cuda.synchronize()
-        what = (f"grazing {cfg.width}x{cfg.height} tiles {cfg.tile_h}x{cfg.tile_w} "
+        what = (f"grazing the {'forward' if blocks else 'backward'}'s rectangles, "
+                f"{cfg.width}x{cfg.height} tiles {cfg.tile_h}x{cfg.tile_w} "
                 f"L={L} gates={cfg.need_dd} flow={flow}")
         err, lanes = compare(out, contrib, ref_out, ref_contrib, what)
         err_b, rows_b = compare_bwd(dfeat, ref_dfeat, lanes, what)
         slot, present = flat.stream_slots(start, counts)
-        e_f, equal = compare_twins((None, f_dfeat), (None, dfeat[:, :slot.shape[1]]),
-                                   slot, present, what + " flat backward")
-        if not equal:
-            raise AssertionError(f"{what}: flat and dense backward differ ({e_f:.3g})")
-        worst["dense_forward"] = max(worst["dense_forward"], err)
-        for name in ("dense_backward", "flat_backward"):  # the same bits
+        Ls = slot.shape[1]
+        e_f, equal = compare_twins((f_out, f_contrib), (out, contrib[:, :Ls]), slot,
+                                   present, what + " flat forward")
+        e_b, equal_b = compare_twins((None, f_dfeat), (None, dfeat[:, :Ls]), slot,
+                                     present, what + " flat backward")
+        if not (equal and equal_b):
+            raise AssertionError(f"{what}: flat and dense kernels differ (forward "
+                                 f"{e_f:.3g}, backward {e_b:.3g})")
+        for name in ("dense_forward", "flat_forward"):  # the same bits
+            worst[name] = max(worst[name], err)
+        for name in ("dense_backward", "flat_backward"):
             worst[name] = max(worst[name], err_b)
         log("kernels", f"{what}: instances {int(counts.sum())}; forward max_abs_err "
             f"{err:.3g}, contrib lanes differing {lanes}; backward max_abs_err "
             f"{err_b:.3g} (max |grad| {float(ref_dfeat.abs().max()):.3g}), rows past "
-            f"tolerance {rows_b}; flat backward on the same rows bitwise equal")
+            f"tolerance {rows_b}; flat forward and backward on the same rows "
+            "bitwise equal to dense")
     return worst
 
 
@@ -1976,9 +2018,13 @@ def phase_timing(scenes, runs, flat_runs, worst, launches):
     counted = {"dense": f"{steps} steps",
                "flat": f"{steps} steps and {len(flat_runs)} first steps "
                        "compared with dense"}
-    # Blocks per SM, registers, spills and shared memory of the backward
-    # templates these shapes run.
+    # Blocks per SM, registers, spills and shared memory of the instances
+    # these shapes run.
     occupancy = {
+        "dense_forward": dense.forward_occupancy(cfg.tile_pixels, cfg.need_dd,
+                                                 cfg.need_distribution),
+        "flat_forward": flat.forward_occupancy(fcfg.tile_pixels, fcfg.need_dd,
+                                               fcfg.need_distribution),
         "dense_backward": dense.backward_occupancy(cfg.tile_pixels, cfg.need_dd,
                                                    has_flow),
         "flat_backward": flat.backward_occupancy(fcfg.tile_pixels, fcfg.need_dd,
@@ -1989,17 +2035,17 @@ def phase_timing(scenes, runs, flat_runs, worst, launches):
         ms = time_ms(kernel, 20)
         plain_ms = time_ms(plain, 2)
         b_ms, b_by, t_bytes, t_ops = bound(nbytes, ops)
-        occ = occupancy.get(name)
+        occ = occupancy[name]
         log("timing", f"{name} at ftorf training shapes "
             f"({shapes[name.split('_')[0]]}, flow={flow_on}): {ms:.4f} ms; "
             f"plain {plain_ms:.3f} ms; bound {b_ms:.4f} ms ({nbytes} B -> "
             f"{t_bytes:.4f} ms, {ops} fp32 ops -> {t_ops:.4f} ms); launches in "
             f"the {'train-flat' if name.startswith('flat') else 'train'} phase "
             f"{launches[name]} over {counted[name.split('_')[0]]}; max_abs_err "
-            f"{worst[name]:.3g}" + ("" if occ is None else
-            f"; {occ['blocks_per_sm']} block(s) of {cfg.tile_pixels} threads "
-            f"per SM, {occ['registers']} registers, {occ['spill_bytes']} B "
-            f"local, {occ['shared_bytes']} B shared (need_dd={cfg.need_dd})"))
+            f"{worst[name]:.3g}; {occ['blocks_per_sm']} block(s) of "
+            f"{cfg.tile_pixels} threads per SM, {occ['registers']} registers, "
+            f"{occ['spill_bytes']} B local, {occ['shared_bytes']} B shared "
+            f"(need_dd={cfg.need_dd}, need_distribution={cfg.need_distribution})")
         kernels.append(dict(
             name=name, route="cuda", source=f"gftorf_tpu_torch/csrc/{name}.cu",
             replaces=REPLACES[name], launches=launches[name],

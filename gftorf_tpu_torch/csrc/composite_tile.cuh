@@ -11,6 +11,52 @@
 // on the same rows and give the same bits. The bounds are in the .cu
 // files.
 //
+// The forward body. Its first version had every warp evaluate every row
+// of a 256-row batch (eval_sample and its expf on all 32 lanes, then a
+// ballot), whether or not the row's footprint could reach the warp's
+// pixels; all 512 threads copied each batch into shared memory and met
+// at three block barriers a batch; and each warp with a hit did a shared
+// atomicAdd on the same word, row after row. A warp issues a row's
+// evaluation and blend once for its 32 lanes, so a tile's time was its
+// 16 warps' instructions over every row. Now:
+//  1. The forward's warps hold 8x4 blocks of pixels (warp_cull.cuh,
+//     block_pixel), not 16x2 rows: the squarest rectangle 32 pixels fill,
+//     which the fewest footprints reach.
+//  2. Before a sub-batch of SUB = 32 rows each lane tests one row against
+//     the warp's rectangle (one cull box per row, computed once per batch)
+//     and a ballot gives the rows the warp walks. A culled row has no
+//     valid pixel in the rectangle: it changes no pixel's T, sums, dd
+//     moments, first sample or latch, and counts no pixel of this warp,
+//     so skipping it changes no bit. A warp whose pixels have all stopped
+//     walks no row.
+//  3. Warps run free through a batch. The only thing they share is each
+//     row's integer count of contributing pixels: lane j of a warp keeps
+//     its popcount for row j of the sub-batch and stores the 32 counts to
+//     the warp's own slot in one store (0 for the rows it skipped); the
+//     slots are double-buffered by batch parity and added in warp order
+//     after the next batch's barrier. That barrier is the only one a batch
+//     meets: there the boxes are ready, the batch before is fully walked
+//     (its counts are stored and its buffer may be refilled), and the
+//     block leaves when every pixel has stopped.
+//  4. Batches are staged in two buffers by the bulk copy engine
+//     (cp.async.bulk with an mbarrier, issued by one thread after the
+//     barrier): batch k+1 lands while batch k is walked, and a block that
+//     leaves has no copy in flight.
+//  5. Two 512-thread blocks per SM (64 registers a thread): 150 tiles of
+//     512 pixels run in one wave on 132 SMs. Tiles of more pixels run an
+//     instance compiled for one 1024-thread block.
+// Each pixel's sequence of fp32 operations is the first version's
+// (eval_sample, next_transmittance and the same blend expressions), so the
+// output and the counts keep their bits, and the backward, which
+// recomputes the recurrence, latches T_STOP where the forward did.
+// Measured and dropped: evaluating the next live row's sample before the
+// current row's blend (it hides the expf latency on a deep tile with few
+// warps at work, but costs registers and time at the training shapes), a
+// shared atomicAdd per row with a hit in place of the count slots, a
+// deepest-tile-first block order, and 16-byte loads of the blended
+// columns. PERF.md has each choice's time against its alternative
+// (chip_ab.py --pair forward).
+//
 // The backward body. Its first version walked the rows in lockstep: for
 // every row, every warp that a row reached reduced 24 columns with 24
 // shuffle trees (120 shuffles) and lane 0 stored them; then the whole
@@ -52,7 +98,8 @@
 //     first version's, operation for operation, but for the reciprocal.
 // The order of every add is fixed by the thread and the data alone, with
 // no float atomics: the same inputs give the same bits, in both layouts.
-// PERF.md has each choice's time against its alternative (chip_bwd_ab.py).
+// PERF.md has each choice's time against its alternative (chip_ab.py
+// --pair backward).
 
 #pragma once
 
@@ -67,146 +114,25 @@ constexpr int BATCH = 256;        // rows staged per batch: 24 KB of shared memo
 constexpr int BWD_MAX_PIX = 512;  // the backward runs one thread per pixel
 constexpr int BWD_MAX_WARPS = BWD_MAX_PIX / 32;
 
-// This thread's pixel in tile t (origins: (T, 2) int32 x, y of its corner).
+// Pixel i of tile t (origins: (T, 2) int32 x, y of its corner), at
+// (i % tile_w, i / tile_w) from the corner.
 struct Pixel {
   float x, y;
   bool inside;
 };
 
-__device__ __forceinline__ Pixel pixel_of(const int* origins, int t,
+__device__ __forceinline__ Pixel pixel_of(const int* origins, int t, int i,
                                           int tile_w, int width, int height) {
   Pixel p;
-  p.x = (float)origins[2 * t] + (float)(threadIdx.x % tile_w);
-  p.y = (float)origins[2 * t + 1] + (float)(threadIdx.x / tile_w);
+  p.x = (float)origins[2 * t] + (float)(i % tile_w);
+  p.y = (float)origins[2 * t + 1] + (float)(i / tile_w);
   p.inside = (p.x < (float)width) && (p.y < (float)height);
   return p;
 }
 
-// Forward. Blends rows [0, count) of tile_feat front to back at this
-// thread's pixel, writes its (OUTC,) output row from its bg row `b`, and
-// the per-row contributing-pixel counts to tile_contrib[0, extent).
-// Shared memory: s_feat (BATCH * FEAT floats), s_hits (BATCH ints).
-template <bool NEED_DD, bool NEED_DIST>
-__device__ __forceinline__ void composite_tile_forward(
-    const float* __restrict__ tile_feat, int count, int extent, Pixel p,
-    const float* __restrict__ b, float* __restrict__ out_px,
-    float* __restrict__ tile_contrib, float* s_feat, int* s_hits) {
-  const int pid = threadIdx.x;
-  const int pix = blockDim.x;
-  const int lane = pid & 31;
+// ------------------------------------------------- staging, both directions
 
-  bool done = !p.inside;
-  float T = 1.0f;
-  float color[3] = {0.f, 0.f, 0.f};
-  float phasor[7] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  float flow[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  float depth = 0.f, acc = 0.f;
-  float dd = 0.f, wz_run = 0.f, wz2_run = 0.f;
-  float first_alpha = 0.f, first_dist = 0.f, first_amp = 0.f;
-  bool has_first = false;
-
-  int base = 0;
-  for (; base < count; base += BATCH) {
-    if (__syncthreads_count(!done) == 0) break;
-    const int n = min(BATCH, count - base);
-    const float* src = tile_feat + (size_t)base * FEAT;
-    for (int i = pid; i < n * FEAT; i += pix) s_feat[i] = src[i];
-    for (int i = pid; i < n; i += pix) s_hits[i] = 0;
-    __syncthreads();
-
-    if (!__all_sync(FULL, done)) {
-      for (int j = 0; j < n; ++j) {
-        const float* g = s_feat + j * FEAT;
-        bool hit = false;
-        if (!done) {
-          const Sample smp = eval_sample(g, p.x, p.y);
-          if (smp.valid) {
-            const float alpha = smp.alpha;
-            const float t_next = next_transmittance(T, alpha);
-            if (t_next < T_STOP) {
-              done = true;
-            } else {
-              hit = true;
-              const float w = alpha * T;
-              const float wp = w * T;
-#pragma unroll
-              for (int k = 0; k < 3; ++k) color[k] += w * g[7 + k];
-              depth += w * g[10];
-#pragma unroll
-              for (int k = 0; k < 7; ++k) phasor[k] += wp * g[11 + k];
-#pragma unroll
-              for (int k = 0; k < 6; ++k) flow[k] += w * g[18 + k];
-              if (NEED_DD) {
-                const float z = g[6];
-                const float wz = w * z;
-                dd += w * (z * z) * acc - 2.0f * wz * wz_run + w * wz2_run;
-                wz_run += wz;
-                wz2_run += wz * z;
-              }
-              acc += w;
-              if (NEED_DIST && !has_first) {
-                first_alpha = alpha;
-                first_dist = g[10];
-                first_amp = g[13];
-                has_first = true;
-              }
-              T = t_next;
-            }
-          }
-        }
-        const unsigned ballot = __ballot_sync(FULL, hit);
-        if (lane == 0 && ballot) atomicAdd(&s_hits[j], __popc(ballot));
-      }
-    }
-    __syncthreads();
-    for (int i = pid; i < n; i += pix) tile_contrib[base + i] = (float)s_hits[i];
-  }
-  // Rows never reached (early exit, or past the count) touched no pixel.
-  for (int i = min(base, count) + pid; i < extent; i += pix) tile_contrib[i] = 0.f;
-
-  float o[OUTC];
-#pragma unroll
-  for (int k = 0; k < 3; ++k) o[k] = color[k] + T * b[k];
-  o[3] = depth;
-#pragma unroll
-  for (int k = 0; k < 7; ++k) o[4 + k] = phasor[k] + T * b[4 + k];
-  o[11] = acc;
-  o[12] = NEED_DD ? dd : 0.f;
-  o[13] = T;
-  o[14] = NEED_DIST ? first_alpha : 0.f;
-  o[15] = NEED_DIST ? first_dist : 0.f;
-  o[16] = NEED_DIST ? first_amp : 0.f;
-  o[17] = acc;
-  o[18] = NEED_DD ? wz_run : 0.f;
-  o[19] = NEED_DD ? wz2_run : 0.f;
-#pragma unroll
-  for (int k = 0; k < 6; ++k) o[20 + k] = flow[k];
-#pragma unroll
-  for (int k = 26; k < OUTC; ++k) o[k] = 0.f;
-  float4* dst = reinterpret_cast<float4*>(out_px);
-#pragma unroll
-  for (int k = 0; k < OUTC / 4; ++k)
-    dst[k] = make_float4(o[4 * k], o[4 * k + 1], o[4 * k + 2], o[4 * k + 3]);
-}
-
-// ---------------------------------------------------------------- backward
-
-constexpr int SUB = 32;  // rows each warp walks between two block barriers
-constexpr int BWD_PART = BWD_MAX_WARPS * SUB * FEAT;  // floats of one partial buffer
-
-// Blocks of 512 threads per SM the backward is compiled for
-// (__launch_bounds__). One leaves up to 128 registers a thread, which it
-// uses without spills. Two (64 registers with spills, and SUB = 16 to fit
-// the shared memory) were slower (PERF.md, chip_bwd_ab.py).
-constexpr int BWD_MIN_BLOCKS = 1;
-
-// The backward's dynamic shared memory (151,568 B).
-struct BwdShared {
-  float feat[2][BATCH * FEAT];  // staged batches of rows, filled by bulk copies
-  float part[2][BWD_PART];      // per-warp column sums of two sub-batches
-  float4 box[BATCH];            // the staged batch's cull boxes (warp_cull.cuh)
-  unsigned long long full[2];   // mbarrier of each staging buffer
-};
+constexpr int SUB = 32;  // rows a warp tests with one ballot (a sub-batch)
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return (unsigned)__cvta_generic_to_shared(p);
@@ -247,6 +173,231 @@ __device__ __forceinline__ void mbar_wait(unsigned long long* bar, int parity) {
         : "memory");
   }
 }
+
+// ---------------------------------------------------------------- forward
+
+// Blocks per SM the forward's instance for tiles of up to 512 pixels is
+// compiled for (__launch_bounds__): two, at most 64 registers a thread,
+// keep 150 tiles of 512 pixels in one wave on 132 SMs. Tiles of 513-1024
+// pixels run an instance compiled for one 1024-thread block.
+constexpr int FWD_MIN_BLOCKS = 2;
+
+// The forward's dynamic shared memory, for blocks of up to 32 * MAX_WARPS
+// threads (90,128 B at 16 warps, 122,896 B at 32).
+template <int MAX_WARPS>
+struct FwdShared {
+  float feat[2][BATCH * FEAT];    // staged batches of rows, filled by bulk copies
+  float4 box[2][BATCH];           // each staged batch's cull boxes (warp_cull.cuh)
+  int hits[2][MAX_WARPS][BATCH];  // each warp's contributing pixels per row of a batch
+  unsigned long long full[2];     // mbarrier of each staging buffer
+};
+
+// One pixel's side of the forward: transmittance, the accumulators, the
+// dd moments (exclusive running sums) and the first contributing sample.
+template <bool NEED_DD, bool NEED_DIST>
+struct PixelBlend {
+  float px, py;
+  bool done;
+  float T;
+  float color[3], phasor[7], flow[6];
+  float depth, acc, dd, wz_run, wz2_run;
+  float first_alpha, first_dist, first_amp;
+  bool has_first;
+
+  __device__ __forceinline__ explicit PixelBlend(Pixel p) {
+    px = p.x;
+    py = p.y;
+    done = !p.inside;
+    T = 1.0f;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) color[k] = 0.f;
+#pragma unroll
+    for (int k = 0; k < 7; ++k) phasor[k] = 0.f;
+#pragma unroll
+    for (int k = 0; k < 6; ++k) flow[k] = 0.f;
+    depth = acc = dd = wz_run = wz2_run = 0.f;
+    first_alpha = first_dist = first_amp = 0.f;
+    has_first = false;
+  }
+
+  // The sample of row g at this pixel, its six geometry columns read as
+  // one 16-byte and one 8-byte load (g is 16-byte aligned).
+  __device__ __forceinline__ Sample sample(const float* g) const {
+    const float4 a = *reinterpret_cast<const float4*>(g);
+    const float2 c = *reinterpret_cast<const float2*>(g + 4);
+    const float h[6] = {a.x, a.y, a.z, a.w, c.x, c.y};
+    return eval_sample(h, px, py);
+  }
+
+  // The blend of row g (sample s) at this pixel, the first version's step
+  // operation for operation; returns whether the pixel contributes.
+  __device__ __forceinline__ bool blend(const Sample& s, const float* g) {
+    if (done || !s.valid) return false;
+    const float alpha = s.alpha;
+    const float t_next = next_transmittance(T, alpha);
+    if (t_next < T_STOP) {
+      done = true;
+      return false;
+    }
+    const float w = alpha * T;
+    const float wp = w * T;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) color[k] += w * g[7 + k];
+    depth += w * g[10];
+#pragma unroll
+    for (int k = 0; k < 7; ++k) phasor[k] += wp * g[11 + k];
+#pragma unroll
+    for (int k = 0; k < 6; ++k) flow[k] += w * g[18 + k];
+    if (NEED_DD) {
+      const float z = g[6];
+      const float wz = w * z;
+      dd += w * (z * z) * acc - 2.0f * wz * wz_run + w * wz2_run;
+      wz_run += wz;
+      wz2_run += wz * z;
+    }
+    acc += w;
+    if (NEED_DIST && !has_first) {
+      first_alpha = alpha;
+      first_dist = g[10];
+      first_amp = g[13];
+      has_first = true;
+    }
+    T = t_next;
+    return true;
+  }
+
+  // This pixel's (OUTC,) output row, bg row b added times the frozen T.
+  __device__ __forceinline__ void write(const float* __restrict__ b,
+                                        float* __restrict__ out_px) const {
+    float o[OUTC];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) o[k] = color[k] + T * b[k];
+    o[3] = depth;
+#pragma unroll
+    for (int k = 0; k < 7; ++k) o[4 + k] = phasor[k] + T * b[4 + k];
+    o[11] = acc;
+    o[12] = NEED_DD ? dd : 0.f;
+    o[13] = T;
+    o[14] = NEED_DIST ? first_alpha : 0.f;
+    o[15] = NEED_DIST ? first_dist : 0.f;
+    o[16] = NEED_DIST ? first_amp : 0.f;
+    o[17] = acc;
+    o[18] = NEED_DD ? wz_run : 0.f;
+    o[19] = NEED_DD ? wz2_run : 0.f;
+#pragma unroll
+    for (int k = 0; k < 6; ++k) o[20 + k] = flow[k];
+#pragma unroll
+    for (int k = 26; k < OUTC; ++k) o[k] = 0.f;
+    float4* dst = reinterpret_cast<float4*>(out_px);
+#pragma unroll
+    for (int k = 0; k < OUTC / 4; ++k)
+      dst[k] = make_float4(o[4 * k], o[4 * k + 1], o[4 * k + 2], o[4 * k + 3]);
+  }
+};
+
+// Rows [0, n) of a walked batch: each row's contributing pixels, the sum
+// of the warps' counts, to dst[0, n).
+template <int MAX_WARPS>
+__device__ __forceinline__ void store_counts(const int (&hits)[MAX_WARPS][BATCH],
+                                             int n, float* __restrict__ dst) {
+  const int nwarps = blockDim.x >> 5;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    int sum = 0;
+    for (int w = 0; w < nwarps; ++w) sum += hits[w][i];
+    dst[i] = (float)sum;
+  }
+}
+
+// Forward. Blends rows [0, count) of tile_feat (16-byte aligned) front to
+// back at this thread's pixel, writes its (OUTC,) output row from its bg
+// row `b`, and the per-row contributing-pixel counts to
+// tile_contrib[0, extent) (zero past the last row reached). `rect` is the
+// pixel rectangle of this thread's warp (warp_cull.cuh). The block runs
+// blockDim.x = 32 * k <= 32 * MAX_WARPS threads with
+// sizeof(FwdShared<MAX_WARPS>) bytes of dynamic shared memory.
+template <bool NEED_DD, bool NEED_DIST, int MAX_WARPS>
+__device__ __forceinline__ void composite_tile_forward(
+    const float* __restrict__ tile_feat, int count, int extent, Pixel p,
+    float4 rect, const float* __restrict__ b, float* __restrict__ out_px,
+    float* __restrict__ tile_contrib, FwdShared<MAX_WARPS>& sm) {
+  const int pid = threadIdx.x;
+  const int pix = blockDim.x;
+  const int lane = pid & 31;
+  const int warp = pid >> 5;
+
+  if (pid == 0) {
+    mbar_init(&sm.full[0]);
+    mbar_init(&sm.full[1]);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    if (count > 0) bulk_load(sm.feat[0], tile_feat, min(BATCH, count), &sm.full[0]);
+  }
+  PixelBlend<NEED_DD, NEED_DIST> px(p);
+  __syncthreads();  // the barriers are initialised
+
+  int base = 0, k = 0;
+  for (; base < count; base += BATCH, ++k) {
+    const int n = min(BATCH, count - base);
+    const float* rows = sm.feat[k & 1];
+    mbar_wait(&sm.full[k & 1], (k >> 1) & 1);
+    float4* box = sm.box[k & 1];
+    for (int i = pid; i < n; i += pix) box[i] = cull_box(rows + i * FEAT);
+    // The only block barrier of a batch. Boxes written; every warp has
+    // walked the batch before, so its counts can be stored and its
+    // staging buffer refilled.
+    const bool stop = __syncthreads_count(!px.done) == 0;
+    if (k > 0) store_counts(sm.hits[(k - 1) & 1], BATCH, tile_contrib + base - BATCH);
+    if (stop) break;
+    if (pid == 0 && base + BATCH < count)
+      bulk_load(sm.feat[(k + 1) & 1], tile_feat + (size_t)(base + BATCH) * FEAT,
+                min(BATCH, count - base - BATCH), &sm.full[(k + 1) & 1]);
+
+    // Warps run free through the batch: nothing a warp does here waits
+    // for another warp.
+    int* hits = sm.hits[k & 1][warp];
+    for (int s0 = 0; s0 < n; s0 += SUB) {
+      const int m = min(SUB, n - s0);
+      // The rows of this sub-batch that can touch the warp's pixels.
+      unsigned live = __ballot_sync(FULL, lane < m && !culled(box[s0 + lane], rect));
+      if (__all_sync(FULL, px.done)) live = 0u;
+      unsigned cnt = 0;  // lane j: the warp's contributing pixels of row s0 + j
+      for (; live != 0u; live &= live - 1u) {
+        const int j = __ffs(live) - 1;
+        const float* g = rows + (s0 + j) * FEAT;
+        const bool hit = px.blend(px.sample(g), g);
+        const unsigned ballot = __ballot_sync(FULL, hit);
+        if (lane == j) cnt = __popc(ballot);
+      }
+      if (lane < m) hits[s0 + lane] = (int)cnt;  // 0 for the rows it skips
+    }
+  }
+  if (base >= count && k > 0) {  // every row walked: the last batch's counts
+    __syncthreads();
+    const int last = base - BATCH;
+    store_counts(sm.hits[(k - 1) & 1], count - last, tile_contrib + last);
+  }
+  // Rows never reached (every pixel stopped, or past the count) touched
+  // no pixel.
+  for (int i = min(base, count) + pid; i < extent; i += pix) tile_contrib[i] = 0.f;
+  px.write(b, out_px);
+}
+
+// ---------------------------------------------------------------- backward
+
+constexpr int BWD_PART = BWD_MAX_WARPS * SUB * FEAT;  // floats of one partial buffer
+
+// Blocks of 512 threads per SM the backward is compiled for
+// (__launch_bounds__). One leaves up to 128 registers a thread, which it
+// uses without spills. Two (64 registers with spills, and SUB = 16 to fit
+// the shared memory) were slower (PERF.md, chip_ab.py).
+constexpr int BWD_MIN_BLOCKS = 1;
+
+// The backward's dynamic shared memory (151,568 B).
+struct BwdShared {
+  float feat[2][BATCH * FEAT];  // staged batches of rows, filled by bulk copies
+  float part[2][BWD_PART];      // per-warp column sums of two sub-batches
+  float4 box[BATCH];            // the staged batch's cull boxes (warp_cull.cuh)
+  unsigned long long full[2];   // mbarrier of each staging buffer
+};
 
 // One step of the butterfly below: lanes whose bit N is set keep the upper
 // N slots of x and hand the lower N to their partner, the others the
@@ -535,26 +686,26 @@ __device__ __forceinline__ void composite_tile_backward(
   for (int i = reached * FEAT + pid; i < extent * FEAT; i += pix) tile_dfeat[i] = 0.f;
 }
 
-// Host side: the attributes every backward launch needs (dynamic shared
-// memory past 48 KB, and the SM's shared memory preferred over its L1),
-// and the occupancy report chip_smoke.py logs: blocks per SM, registers
-// and local (spill) bytes per thread, shared bytes per block.
+// Host side: the attributes every launch of a kernel with `bytes` of
+// dynamic shared memory needs (past 48 KB only by this attribute, and the
+// SM's shared memory preferred over its L1), and the occupancy report
+// chip_smoke.py logs: blocks per SM, registers and local (spill) bytes per
+// thread, shared bytes per block.
 template <typename Kernel>
-inline cudaError_t bwd_prepare(Kernel kernel) {
+inline cudaError_t kernel_prepare(Kernel kernel, int bytes) {
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sizeof(BwdShared));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                               (int)cudaSharedmemCarveoutMaxShared);
 }
 
 template <typename Kernel>
-inline int bwd_occupancy(Kernel kernel, int pix, int* info) {
-  cudaError_t err = bwd_prepare(kernel);
+inline int kernel_occupancy(Kernel kernel, int pix, int bytes, int* info) {
+  cudaError_t err = kernel_prepare(kernel, bytes);
   if (err != cudaSuccess) return (int)err;
   int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, pix,
-                                                      sizeof(BwdShared));
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, pix, bytes);
   if (err != cudaSuccess) return (int)err;
   cudaFuncAttributes attr;
   err = cudaFuncGetAttributes(&attr, kernel);
@@ -562,7 +713,7 @@ inline int bwd_occupancy(Kernel kernel, int pix, int* info) {
   info[0] = blocks;
   info[1] = attr.numRegs;
   info[2] = (int)attr.localSizeBytes;
-  info[3] = (int)sizeof(BwdShared);
+  info[3] = bytes;
   return 0;
 }
 

@@ -79,7 +79,7 @@ dense_backward_kernel(const float* __restrict__ feat,
   const size_t row = (size_t)t * blockDim.x + threadIdx.x;
   composite_tile_backward<NEED_DD, HAS_FLOW>(
       feat + (size_t)t * L * FEAT, min(max(counts[t], 0), L), L,
-      pixel_of(origins, t, tile_w, width, height),
+      pixel_of(origins, t, threadIdx.x, tile_w, width, height),
       warp_rect(origins, t, tile_w), bg + row * BGC, out_res + row * OUTC,
       grad + row * OUTC, dfeat + (size_t)t * L * FEAT,
       *reinterpret_cast<BwdShared*>(smem));
@@ -91,7 +91,7 @@ int launch(int T, int pix, cudaStream_t s, const float* feat, const float* bg,
            const int* origins, float* dfeat, int L, int tile_w, int width,
            int height) {
   const auto kernel = dense_backward_kernel<NEED_DD, HAS_FLOW>;
-  const cudaError_t err = bwd_prepare(kernel);
+  const cudaError_t err = kernel_prepare(kernel, sizeof(BwdShared));
   if (err != cudaSuccess) return (int)err;
   kernel<<<T, pix, sizeof(BwdShared), s>>>(feat, bg, out_res, grad, counts,
                                            origins, dfeat, L, tile_w, width,
@@ -146,10 +146,11 @@ extern "C" int gftorf_dense_backward(const float* feat, const float* bg,
 // info[3] shared bytes per block. Returns the first CUDA error.
 extern "C" int gftorf_dense_backward_occupancy(int pix, int need_dd,
                                                int has_flow, int* info) {
-  if (need_dd && has_flow) return bwd_occupancy(dense_backward_kernel<true, true>, pix, info);
-  if (need_dd) return bwd_occupancy(dense_backward_kernel<true, false>, pix, info);
-  if (has_flow) return bwd_occupancy(dense_backward_kernel<false, true>, pix, info);
-  return bwd_occupancy(dense_backward_kernel<false, false>, pix, info);
+  const int bytes = sizeof(BwdShared);
+  if (need_dd && has_flow) return kernel_occupancy(dense_backward_kernel<true, true>, pix, bytes, info);
+  if (need_dd) return kernel_occupancy(dense_backward_kernel<true, false>, pix, bytes, info);
+  if (has_flow) return kernel_occupancy(dense_backward_kernel<false, true>, pix, bytes, info);
+  return kernel_occupancy(dense_backward_kernel<false, false>, pix, bytes, info);
 }
 
 // The backward kernels' cull predicate (warp_cull.cuh) on n rows (n, 24)

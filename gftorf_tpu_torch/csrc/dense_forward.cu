@@ -13,15 +13,11 @@
 // over 128-lane chunks, MXU dot products) because of the TPU's lanes.
 // Here the sequential form of the reference's renderCUDA is the simple
 // one: one block per tile, one thread per pixel, each thread running the
-// front-to-back recurrence on its pixel. The tile's instances are staged
-// through shared memory in batches of BATCH rows with a block-wide
-// cooperative load, so each row is read from device memory once per tile.
-// A warp whose pixels have all stopped skips the batch; the block leaves
-// when every pixel has stopped (__syncthreads_count) or at counts[t].
-// Per-instance pixel counts are integer adds into shared memory (one
-// atomicAdd of a warp ballot's popcount per warp and instance): integer
-// sums are exact in any order, so the result is deterministic and there
-// is no float atomicAdd anywhere.
+// front-to-back recurrence on its pixel, with the tile's rows staged
+// through shared memory once per tile and the block leaving when every
+// pixel has stopped (or at counts[t]). Per-instance pixel counts are
+// integer sums in a fixed order, so there is no float atomicAdd anywhere
+// and the result is the same on every run.
 //
 // Semantics kept from the TPU kernel:
 //  - alpha = min(0.99, o * exp(min(power, 0))); an instance is valid when
@@ -37,22 +33,35 @@
 //  - the dd moments are exclusive running sums across batches, kept in
 //    registers; the first contributing sample is taken once per pixel.
 //
-// Bound on the H100: the work per tile is one pass over count[t] rows of
-// 96 bytes plus 176 bytes of bg and output per pixel, against ~16 fp32
-// operations per evaluated (pixel, instance) pair and ~50 more per
-// contributing pair, none of which can use the tensor cores. At the
-// serving shapes (150 tiles of 512 pixels, L up to a few thousand) the
-// operations dominate the bytes, so the kernel is bound by the fp32 rate
-// (67 TFLOP/s); chip_smoke.py computes the exact bound for each run from
-// the data. This first version is the simple correct one: later work can
-// cull instances per warp and double-buffer the batches (cp.async/TMA).
+// Bound on the H100: one pass over the rows up to each tile's last
+// evaluated instance (96 B each) and 176 B of bg and output per pixel,
+// against ~16 fp32 operations per (pixel, instance) pair evaluated up to
+// the pixel's early exit and ~41 more per contributing pair (+12 with
+// dd), none of which can use the tensor cores. At the ftorf training
+// shapes the operations dominate the bytes (PERF.md), so the bound is the
+// fp32 rate, 67 TFLOP/s, which counts a fused multiply-add as two
+// operations: the kernel is built without them (below), so it cannot come
+// near that rate. chip_smoke.py computes the bound for each run from the
+// data.
+//
+// What the design does about it. The function's work counts every
+// evaluated pair; a warp of 32 pixels, though, issues a row's evaluation
+// and blend once for all its lanes, so the cost is the instructions
+// issued per (row, warp) pair. The per-tile body (composite_tile.cuh,
+// whose notes have the details) issues as few of them as it can without
+// changing a bit: its warps hold 8x4 pixel blocks and skip every row
+// whose footprint cannot reach their pixels (exact per-warp culling,
+// warp_cull.cuh) and every row after their pixels stopped; they run free
+// through 256-row batches double-buffered by bulk copies, with one block
+// barrier a batch; two 512-thread blocks per SM keep 150 tiles in one
+// wave. What is left is a tile's serial walk: the deepest tile, or two
+// tiles sharing an SM, set the launch's time.
 //
 // Built with --fmad=false so each multiply and add rounds as the plain
 // PyTorch version's elementwise ops do. The alpha and transmittance step
 // lives in dense_common.cuh, shared with dense_backward.cu, so that the
-// backward latches the early exit exactly where this kernel did. The
-// per-tile body lives in composite_tile.cuh, shared with flat_forward.cu:
-// this entry only finds the tile's slab of the dense block.
+// backward latches the early exit exactly where this kernel did. This
+// entry only finds the tile's slab of the dense block.
 
 #include <cuda_runtime.h>
 
@@ -62,8 +71,8 @@ namespace {
 
 using namespace gftorf;
 
-template <bool NEED_DD, bool NEED_DIST>
-__global__ void __launch_bounds__(1024)
+template <int MAX_PIX, bool NEED_DD, bool NEED_DIST>
+__global__ void __launch_bounds__(MAX_PIX, MAX_PIX <= 512 ? FWD_MIN_BLOCKS : 1)
 dense_forward_kernel(const float* __restrict__ feat,
                      const float* __restrict__ bg,
                      const int* __restrict__ counts,
@@ -71,45 +80,71 @@ dense_forward_kernel(const float* __restrict__ feat,
                      float* __restrict__ out,
                      float* __restrict__ contrib,
                      int L, int tile_w, int width, int height) {
-  __shared__ float s_feat[BATCH * FEAT];
-  __shared__ int s_hits[BATCH];
+  extern __shared__ __align__(128) unsigned char smem[];
 
   // Tile t's rows are lanes [0, counts[t]) of its (L, 24) slab; it owns
   // all L of its contrib lanes.
   const int t = blockIdx.x;
-  const size_t row = (size_t)t * blockDim.x + threadIdx.x;
-  composite_tile_forward<NEED_DD, NEED_DIST>(
+  const int i = block_pixel(tile_w, blockDim.x);  // this thread's pixel
+  const size_t row = (size_t)t * blockDim.x + i;
+  composite_tile_forward<NEED_DD, NEED_DIST, MAX_PIX / 32>(
       feat + (size_t)t * L * FEAT, min(max(counts[t], 0), L), L,
-      pixel_of(origins, t, tile_w, width, height), bg + row * BGC,
-      out + row * OUTC, contrib + (size_t)t * L, s_feat, s_hits);
+      pixel_of(origins, t, i, tile_w, width, height),
+      block_rect(origins, t, tile_w, blockDim.x),
+      bg + row * BGC, out + row * OUTC, contrib + (size_t)t * L,
+      *reinterpret_cast<FwdShared<MAX_PIX / 32>*>(smem));
+}
+
+using Kernel = void (*)(const float*, const float*, const int*, const int*,
+                        float*, float*, int, int, int, int);
+
+template <int MAX_PIX>
+Kernel gated(int need_dd, int need_dist) {
+  if (need_dd && need_dist) return dense_forward_kernel<MAX_PIX, true, true>;
+  if (need_dd) return dense_forward_kernel<MAX_PIX, true, false>;
+  if (need_dist) return dense_forward_kernel<MAX_PIX, false, true>;
+  return dense_forward_kernel<MAX_PIX, false, false>;
+}
+
+// The instance for blocks of `pix` threads, and its dynamic shared bytes.
+Kernel instance(int pix, int need_dd, int need_dist, int* bytes) {
+  if (pix <= 512) {
+    *bytes = sizeof(FwdShared<16>);
+    return gated<512>(need_dd, need_dist);
+  }
+  *bytes = sizeof(FwdShared<32>);
+  return gated<1024>(need_dd, need_dist);
 }
 
 }  // namespace
 
-// C entry, bound with ctypes. feat (T, L, 24), bg (T, pix, 12),
-// counts (T,) int32, origins (T, 2) int32, out (T, pix, 32),
+// C entry, bound with ctypes. feat (T, L, 24) 16-byte aligned, bg
+// (T, pix, 12), counts (T,) int32, origins (T, 2) int32, out (T, pix, 32),
 // contrib (T, L); all contiguous on the current device. pix is the block
 // size: a multiple of 32, at most 1024. Launches on `stream` and returns
-// cudaGetLastError() (0 = the launch was accepted).
+// the first CUDA error (0 = the launch was accepted).
 extern "C" int gftorf_dense_forward(const float* feat, const float* bg,
                                     const int* counts, const int* origins,
                                     float* out, float* contrib, int T, int L,
                                     int pix, int tile_w, int width, int height,
                                     int need_dd, int need_dist, void* stream) {
   if (pix <= 0 || pix > 1024 || pix % 32 != 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid(T), block(pix);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (need_dd && need_dist)
-    dense_forward_kernel<true, true><<<grid, block, 0, s>>>(
-        feat, bg, counts, origins, out, contrib, L, tile_w, width, height);
-  else if (need_dd)
-    dense_forward_kernel<true, false><<<grid, block, 0, s>>>(
-        feat, bg, counts, origins, out, contrib, L, tile_w, width, height);
-  else if (need_dist)
-    dense_forward_kernel<false, true><<<grid, block, 0, s>>>(
-        feat, bg, counts, origins, out, contrib, L, tile_w, width, height);
-  else
-    dense_forward_kernel<false, false><<<grid, block, 0, s>>>(
-        feat, bg, counts, origins, out, contrib, L, tile_w, width, height);
+  int bytes = 0;
+  const Kernel kernel = instance(pix, need_dd, need_dist, &bytes);
+  const cudaError_t err = kernel_prepare(kernel, bytes);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<T, pix, bytes, static_cast<cudaStream_t>(stream)>>>(
+      feat, bg, counts, origins, out, contrib, L, tile_w, width, height);
   return (int)cudaGetLastError();
+}
+
+// The instance's occupancy at `pix` threads a block: info[0] blocks per
+// SM, info[1] registers and info[2] local (spill) bytes per thread,
+// info[3] shared bytes per block. Returns the first CUDA error.
+extern "C" int gftorf_dense_forward_occupancy(int pix, int need_dd,
+                                              int need_dist, int* info) {
+  if (pix <= 0 || pix > 1024 || pix % 32 != 0) return (int)cudaErrorInvalidValue;
+  int bytes = 0;
+  const Kernel kernel = instance(pix, need_dd, need_dist, &bytes);
+  return kernel_occupancy(kernel, pix, bytes, info);
 }

@@ -22,10 +22,9 @@
 // the same bits in both layouts. The block reads only its tile's rows,
 // never the padding: the tail blocks of the stream, which the TPU map
 // assigns to the last tile (up to K - num_rendered rows at the training
-// shapes), are walked by no one. Tile depth is a loop bound, so a tile of
-// any depth runs in the same 25.6 KB of shared memory; but it is one
-// block's serial work, and the deepest tile sets the kernel's time (load
-// balancing across blocks is later work).
+// shapes), are walked by no one. Tile depth is a loop bound: a tile of any
+// depth runs in the same 90,128 B of dynamic shared memory (two 256-row
+// staging buffers, their cull boxes and the warps' count slots).
 //
 // Rows of `contrib` outside the walked rows are not written here: the
 // wrapper (render/kernels/flat.py) hands a zeroed buffer, and the walked
@@ -35,9 +34,16 @@
 // Bound on the H100: one pass over the rows walked before each tile's
 // early exit (96 B each), 176 B of bg and output per pixel and 4 B of
 // contrib per stream slot, against the dense forward's ~16 fp32
-// operations per evaluated (pixel, instance) pair and ~50 per contributing
-// pair; chip_smoke.py computes it from each run's data. Built with
-// --fmad=false, like the dense kernels.
+// operations per evaluated (pixel, instance) pair and ~41 per contributing
+// pair; the operations dominate at the ftorf training shapes, and the
+// fp32 rate counts fused multiply-adds this kernel is built without.
+// chip_smoke.py computes the bound from each run's data. The design's
+// answer is the dense forward's (dense_forward.cu, composite_tile.cuh):
+// per-warp culling over 8x4 pixel blocks, warps free inside a batch,
+// bulk-copy staging, two blocks per SM. A tile is still one block's
+// serial work, so the deepest tile sets the launch's time (21,535 rows
+// in chip_smoke.py's deep-tile scene). Built with --fmad=false, like the
+// dense kernels.
 
 #include <cuda_runtime.h>
 
@@ -47,8 +53,8 @@ namespace {
 
 using namespace gftorf;
 
-template <bool NEED_DD, bool NEED_DIST>
-__global__ void __launch_bounds__(1024)
+template <int MAX_PIX, bool NEED_DD, bool NEED_DIST>
+__global__ void __launch_bounds__(MAX_PIX, MAX_PIX <= 512 ? FWD_MIN_BLOCKS : 1)
 flat_forward_kernel(const float* __restrict__ feat,
                     const float* __restrict__ bg,
                     const int* __restrict__ tile_start,
@@ -57,8 +63,7 @@ flat_forward_kernel(const float* __restrict__ feat,
                     float* __restrict__ out,
                     float* __restrict__ contrib,
                     int K, int tile_w, int width, int height) {
-  __shared__ float s_feat[BATCH * FEAT];
-  __shared__ int s_hits[BATCH];
+  extern __shared__ __align__(128) unsigned char smem[];
 
   // Tile t's rows are its stream segment [start, start + count); it owns
   // the contrib slots of those rows. A range outside [0, K) is cut.
@@ -67,30 +72,45 @@ flat_forward_kernel(const float* __restrict__ feat,
   int count = tile_count[t];
   if (start < 0 || start > K) start = count = 0;
   count = min(max(count, 0), K - start);
-  const size_t row = (size_t)t * blockDim.x + threadIdx.x;
-  composite_tile_forward<NEED_DD, NEED_DIST>(
+  const int i = block_pixel(tile_w, blockDim.x);  // this thread's pixel
+  const size_t row = (size_t)t * blockDim.x + i;
+  composite_tile_forward<NEED_DD, NEED_DIST, MAX_PIX / 32>(
       feat + (size_t)start * FEAT, count, count,
-      pixel_of(origins, t, tile_w, width, height), bg + row * BGC,
-      out + row * OUTC, contrib + start, s_feat, s_hits);
+      pixel_of(origins, t, i, tile_w, width, height),
+      block_rect(origins, t, tile_w, blockDim.x),
+      bg + row * BGC, out + row * OUTC, contrib + start,
+      *reinterpret_cast<FwdShared<MAX_PIX / 32>*>(smem));
 }
 
-template <bool NEED_DD, bool NEED_DIST>
-void launch(int T, int pix, cudaStream_t s, const float* feat, const float* bg,
-            const int* tile_start, const int* tile_count, const int* origins,
-            float* out, float* contrib, int K, int tile_w, int width,
-            int height) {
-  flat_forward_kernel<NEED_DD, NEED_DIST><<<T, pix, 0, s>>>(
-      feat, bg, tile_start, tile_count, origins, out, contrib, K, tile_w,
-      width, height);
+using Kernel = void (*)(const float*, const float*, const int*, const int*,
+                        const int*, float*, float*, int, int, int, int);
+
+template <int MAX_PIX>
+Kernel gated(int need_dd, int need_dist) {
+  if (need_dd && need_dist) return flat_forward_kernel<MAX_PIX, true, true>;
+  if (need_dd) return flat_forward_kernel<MAX_PIX, true, false>;
+  if (need_dist) return flat_forward_kernel<MAX_PIX, false, true>;
+  return flat_forward_kernel<MAX_PIX, false, false>;
+}
+
+// The instance for blocks of `pix` threads, and its dynamic shared bytes.
+Kernel instance(int pix, int need_dd, int need_dist, int* bytes) {
+  if (pix <= 512) {
+    *bytes = sizeof(FwdShared<16>);
+    return gated<512>(need_dd, need_dist);
+  }
+  *bytes = sizeof(FwdShared<32>);
+  return gated<1024>(need_dd, need_dist);
 }
 
 }  // namespace
 
-// C entry, bound with ctypes. feat (K, 24), bg (T, pix, 12), tile_start and
-// tile_count (T,) int32, origins (T, 2) int32, out (T, pix, 32), contrib
-// (K,) zeroed by the caller; all contiguous on the current device. pix is
-// the block size: a multiple of 32, at most 1024. Launches on `stream` and
-// returns cudaGetLastError() (0 = the launch was accepted).
+// C entry, bound with ctypes. feat (K, 24) 16-byte aligned, bg (T, pix,
+// 12), tile_start and tile_count (T,) int32 (segments start at multiples
+// of 256 rows), origins (T, 2) int32, out (T, pix, 32), contrib (K,)
+// zeroed by the caller; all contiguous on the current device. pix is the
+// block size: a multiple of 32, at most 1024. Launches on `stream` and
+// returns the first CUDA error (0 = the launch was accepted).
 extern "C" int gftorf_flat_forward(const float* feat, const float* bg,
                                    const int* tile_start, const int* tile_count,
                                    const int* origins, float* out,
@@ -98,18 +118,23 @@ extern "C" int gftorf_flat_forward(const float* feat, const float* bg,
                                    int tile_w, int width, int height,
                                    int need_dd, int need_dist, void* stream) {
   if (pix <= 0 || pix > 1024 || pix % 32 != 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (need_dd && need_dist)
-    launch<true, true>(T, pix, s, feat, bg, tile_start, tile_count, origins,
-                       out, contrib, K, tile_w, width, height);
-  else if (need_dd)
-    launch<true, false>(T, pix, s, feat, bg, tile_start, tile_count, origins,
-                        out, contrib, K, tile_w, width, height);
-  else if (need_dist)
-    launch<false, true>(T, pix, s, feat, bg, tile_start, tile_count, origins,
-                        out, contrib, K, tile_w, width, height);
-  else
-    launch<false, false>(T, pix, s, feat, bg, tile_start, tile_count, origins,
-                         out, contrib, K, tile_w, width, height);
+  int bytes = 0;
+  const Kernel kernel = instance(pix, need_dd, need_dist, &bytes);
+  const cudaError_t err = kernel_prepare(kernel, bytes);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<T, pix, bytes, static_cast<cudaStream_t>(stream)>>>(
+      feat, bg, tile_start, tile_count, origins, out, contrib, K, tile_w,
+      width, height);
   return (int)cudaGetLastError();
+}
+
+// The instance's occupancy at `pix` threads a block: info[0] blocks per
+// SM, info[1] registers and info[2] local (spill) bytes per thread,
+// info[3] shared bytes per block. Returns the first CUDA error.
+extern "C" int gftorf_flat_forward_occupancy(int pix, int need_dd,
+                                             int need_dist, int* info) {
+  if (pix <= 0 || pix > 1024 || pix % 32 != 0) return (int)cudaErrorInvalidValue;
+  int bytes = 0;
+  const Kernel kernel = instance(pix, need_dd, need_dist, &bytes);
+  return kernel_occupancy(kernel, pix, bytes, info);
 }

@@ -1,12 +1,20 @@
 // Per-warp culling of instances that cannot touch any of a warp's pixels.
 //
-// A warp of a compositing block holds 32 consecutive pixels of the tile,
-// a rectangle (16x2 pixels at tile_w 16, 32x1 at 32, 8x4 at 8). An
-// instance is culled for that warp only when eval_sample(...).valid
-// (dense_common.cuh) is false at every pixel of the rectangle, as the
-// kernels evaluate it in fp32. A culled instance would leave every pixel's
-// transmittance, running sums and early-exit latch untouched and add zero
-// to every per-instance sum, so skipping it changes no bit of any result.
+// A warp of a compositing block holds 32 pixels of the tile inside a
+// rectangle. The backward kernels give warp w the 32 consecutive pixels
+// [32 w, 32 w + 32) (16x2 pixels at tile_w 16, 32x1 at 32, 8x4 at 8;
+// warp_rect). The forward kernels give it an 8x4 block of pixels wherever
+// the tile's sides are multiples of 8 and 4 (block_pixel, block_rect): the
+// squarest rectangle 32 pixels fill, so the fewest footprints reach it (at
+// the ftorf training shapes its warps walk 47 % fewer (row, warp) pairs
+// than with 16x2 rows, PERF.md). The backward keeps the consecutive map
+// because its per-row sums add the warps' partials in warp order:
+// regrouping pixels would change their bits. An instance is culled for a
+// warp only when eval_sample(...).valid (dense_common.cuh) is false at
+// every pixel of the rectangle, as the kernels evaluate it in fp32. A
+// culled instance would leave every pixel's transmittance, running sums
+// and early-exit latch untouched and add zero to every per-instance sum,
+// so skipping it changes no bit of any result.
 //
 // Why the test is exact. With p = -Q/2, Q = a dx^2 + 2 b dx dy + c dy^2
 // (the packed conic a, b, c = g[2], g[3], g[4]), a pixel is valid only if
@@ -79,8 +87,8 @@ __device__ __forceinline__ float4 cull_box(const float* g) {
 }
 
 // The pixel rectangle {x0, x1, y0, y1} (inclusive pixel coordinates) of
-// this thread's warp in tile t, from pixel_of's mapping (pixel i of a tile
-// at (i % tile_w, i / tile_w) from its corner).
+// this thread's warp in tile t when thread i holds pixel i (pixel i of a
+// tile at (i % tile_w, i / tile_w) from its corner).
 __device__ __forceinline__ float4 warp_rect(const int* origins, int t,
                                             int tile_w) {
   const int first = threadIdx.x & ~31, last = first + 31;
@@ -90,6 +98,33 @@ __device__ __forceinline__ float4 warp_rect(const int* origins, int t,
   const float ox = (float)origins[2 * t], oy = (float)origins[2 * t + 1];
   return make_float4(ox + (float)x0, ox + (float)x1, oy + (float)y0,
                      oy + (float)y1);
+}
+
+// Whether the forward's warps hold 8x4 pixel blocks in tiles of `pix`
+// pixels, tile_w wide: both sides are multiples of the block's.
+__device__ __forceinline__ bool warp_blocks(int tile_w, int pix) {
+  return tile_w % 8 == 0 && pix % tile_w == 0 && (pix / tile_w) % 4 == 0;
+}
+
+// This thread's pixel index in the forward's map: lane l of warp w holds
+// pixel (8 (w % (tile_w / 8)) + l % 8, 4 (w / (tile_w / 8)) + l / 8) from
+// the tile's corner where warp_blocks holds, else pixel threadIdx.x.
+__device__ __forceinline__ int block_pixel(int tile_w, int pix) {
+  if (!warp_blocks(tile_w, pix)) return threadIdx.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, across = tile_w / 8;
+  return ((warp / across) * 4 + (lane >> 3)) * tile_w + (warp % across) * 8 +
+         (lane & 7);
+}
+
+// The pixel rectangle of this thread's warp in tile t under block_pixel's
+// map.
+__device__ __forceinline__ float4 block_rect(const int* origins, int t,
+                                             int tile_w, int pix) {
+  if (!warp_blocks(tile_w, pix)) return warp_rect(origins, t, tile_w);
+  const int warp = threadIdx.x >> 5, across = tile_w / 8;
+  const float x0 = (float)origins[2 * t] + (float)((warp % across) * 8);
+  const float y0 = (float)origins[2 * t + 1] + (float)((warp / across) * 4);
+  return make_float4(x0, x0 + 7.f, y0, y0 + 3.f);
 }
 
 __device__ __forceinline__ bool culled(float4 box, float4 rect) {

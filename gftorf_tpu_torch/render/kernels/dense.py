@@ -14,10 +14,11 @@ device: a CUDA tensor goes through the kernel (or the call raises), a CPU
 tensor through ``composite_forward_plain`` / ``composite_backward_plain``,
 the same functions in vectorised torch. ``DenseComposite`` is the
 ``torch.autograd.Function`` in place of the JAX package's custom VJP
-(``_make_pallas_vjp`` / ``_run_pallas_vjp``). ``warp_cull_plain`` and
-``warp_rects`` are the backward kernels' per-warp cull
-(``csrc/warp_cull.cuh``) in torch, for the tests and chip_smoke.py;
-``warp_cull_mask_cuda`` runs the kernels' own predicate on the card.
+(``_make_pallas_vjp`` / ``_run_pallas_vjp``). ``warp_cull_plain``,
+``warp_pixels`` and ``warp_rects`` are the kernels' per-warp cull and
+their warps' pixels (``csrc/warp_cull.cuh``) in torch, for the tests and
+chip_smoke.py; ``warp_cull_mask_cuda`` runs the kernels' own predicate on
+the card.
 
 Packed feature columns (pack_gaussian_features):
   0:2 mean2d | 2:5 conic | 5 opacity | 6 dist_ndc
@@ -254,6 +255,9 @@ def _lib() -> ctypes.CDLL:
     fn = lib.gftorf_dense_forward
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    fn = lib.gftorf_dense_forward_occupancy
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     return lib
 
 
@@ -285,6 +289,7 @@ def composite_forward_cuda(feat_tl, bg_tiles, counts, origins,
         "origins": (origins, torch.int32, (T, 2)),
     }
     check_tensors(expect, dev)
+    feat_tl = aligned16(feat_tl)
     out = torch.empty((T, pix, OUT_COLS), dtype=torch.float32, device=dev)
     contrib = torch.empty((T, L), dtype=torch.float32, device=dev)
     if T == 0:
@@ -468,7 +473,7 @@ def warp_cull_boxes_plain(rows: torch.Tensor) -> torch.Tensor:
 def warp_cull_plain(rows: torch.Tensor, rects: torch.Tensor) -> torch.Tensor:
     """(n, m) bool: row r is culled for pixel rectangle q (``rects`` (m, 4)
     float32 {x0, x1, y0, y1}, inclusive pixel coordinates). The plain
-    version of the backward kernels' per-warp cull (csrc/warp_cull.cuh);
+    version of the kernels' per-warp cull (csrc/warp_cull.cuh);
     used by the tests and chip_smoke.py, not by the compositor."""
     box = warp_cull_boxes_plain(rows)[:, None, :]
     r = rects[None, :, :]
@@ -476,20 +481,36 @@ def warp_cull_plain(rows: torch.Tensor, rects: torch.Tensor) -> torch.Tensor:
             | (box[..., 3] < r[..., 2]) | (box[..., 2] > r[..., 3]))
 
 
-def warp_rects(origins: torch.Tensor, tile_w: int, pix: int) -> torch.Tensor:
+def warp_pixels(tile_w: int, pix: int, blocks: bool = False,
+                device=None) -> torch.Tensor:
+    """(pix,) pixel index each thread of a compositing block holds. Thread
+    i holds pixel i (the backward kernels; ``csrc/warp_cull.cuh::
+    warp_rect``); with ``blocks``, the forward kernels' map
+    (``block_pixel``): lane l of warp w holds pixel (8 (w % (tile_w / 8)) +
+    l % 8, 4 (w // (tile_w / 8)) + l // 8) from the tile's corner, an 8x4
+    block, where tile_w is a multiple of 8 and the tile's height of 4.
+    Pixel i lies at (i % tile_w, i // tile_w)."""
+    i = torch.arange(pix, device=device)
+    if not (blocks and tile_w % 8 == 0 and pix % tile_w == 0
+            and (pix // tile_w) % 4 == 0):
+        return i
+    warp, lane, across = i // 32, i % 32, tile_w // 8
+    return (((warp // across) * 4 + lane // 8) * tile_w + (warp % across) * 8
+            + lane % 8)
+
+
+def warp_rects(origins: torch.Tensor, tile_w: int, pix: int,
+               blocks: bool = False) -> torch.Tensor:
     """(T, pix // 32, 4) float32 pixel rectangle {x0, x1, y0, y1} of each
-    warp of each tile's block (``csrc/warp_cull.cuh::warp_rect``): warp w
-    holds pixels [32 w, 32 w + 32) of the tile, pixel i at (i % tile_w,
-    i // tile_w) from the tile's corner."""
-    first = torch.arange(0, pix, 32, device=origins.device)
-    last = first + 31
-    y0, y1 = first // tile_w, last // tile_w
-    one_row = y0 == y1
-    x0 = torch.where(one_row, first % tile_w, 0)
-    x1 = torch.where(one_row, last % tile_w, tile_w - 1)
+    warp of each tile's block: the bounding box of the warp's 32 pixels
+    under ``warp_pixels``' map (``csrc/warp_cull.cuh::warp_rect``, or
+    ``block_rect`` with ``blocks``)."""
+    p = warp_pixels(tile_w, pix, blocks, origins.device).reshape(-1, 32)
+    x, y = p % tile_w, p // tile_w
     ox = origins[:, 0:1].to(torch.float32)
     oy = origins[:, 1:2].to(torch.float32)
-    return torch.stack([ox + x0, ox + x1, oy + y0, oy + y1], -1)
+    return torch.stack([ox + x.amin(1), ox + x.amax(1), oy + y.amin(1),
+                        oy + y.amax(1)], -1)
 
 
 def warp_cull_mask_cuda(rows: torch.Tensor, rects: torch.Tensor) -> torch.Tensor:
@@ -511,15 +532,24 @@ def warp_cull_mask_cuda(rows: torch.Tensor, rects: torch.Tensor) -> torch.Tensor
     return out.bool()
 
 
-def occupancy(fn, pix: int, need_dd: bool, has_flow: bool) -> dict:
-    """What a backward C entry's ``*_occupancy`` reports for one template
-    at ``pix`` threads a block, on the current card."""
+def occupancy(fn, pix: int, flag_a: bool, flag_b: bool) -> dict:
+    """What a C entry's ``*_occupancy`` reports for the instance a launch
+    at ``pix`` threads a block with its two flags (``need_dd`` and
+    ``has_flow`` for a backward, ``need_dd`` and ``need_distribution`` for
+    a forward) runs, on the current card."""
     info = (ctypes.c_int * 4)()
-    err = fn(pix, int(need_dd), int(has_flow), info)
+    err = fn(pix, int(flag_a), int(flag_b), info)
     if err != 0:
         raise RuntimeError(f"occupancy query failed: cudaError {err}")
     return dict(blocks_per_sm=info[0], registers=info[1], spill_bytes=info[2],
                 shared_bytes=info[3])
+
+
+def forward_occupancy(pix: int, need_dd: bool, need_dist: bool) -> dict:
+    """Blocks per SM, registers, local bytes per thread and shared bytes
+    per block of csrc/dense_forward.cu's instance on the current card."""
+    return occupancy(_lib().gftorf_dense_forward_occupancy, pix, need_dd,
+                     need_dist)
 
 
 def backward_occupancy(pix: int, need_dd: bool, has_flow: bool) -> dict:
@@ -531,7 +561,7 @@ def backward_occupancy(pix: int, need_dd: bool, has_flow: bool) -> dict:
 
 def aligned16(x: torch.Tensor) -> torch.Tensor:
     """``x``, or a copy of it whose data starts on a 16-byte boundary, as
-    the backward kernels' bulk copies need."""
+    the compositing kernels' bulk copies need."""
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 

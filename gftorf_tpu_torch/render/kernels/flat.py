@@ -110,7 +110,17 @@ def _lib_forward() -> ctypes.CDLL:
     fn = lib.gftorf_flat_forward
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    fn = lib.gftorf_flat_forward_occupancy
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     return lib
+
+
+def forward_occupancy(pix: int, need_dd: bool, need_dist: bool) -> dict:
+    """Blocks per SM, registers, local bytes per thread and shared bytes
+    per block of csrc/flat_forward.cu's instance on the current card."""
+    return dense.occupancy(_lib_forward().gftorf_flat_forward_occupancy, pix,
+                           need_dd, need_dist)
 
 
 def _check_stream(feat_fl, bg_tiles, tile_start, tile_count, origins, pix,
@@ -158,6 +168,7 @@ def composite_forward_flat_cuda(feat_fl, bg_tiles, tile_start, tile_count,
                          "pixel, so it must be a multiple of 32 up to 1024")
     K, T, dev = _check_stream(feat_fl, bg_tiles, tile_start, tile_count,
                               origins, pix)
+    feat_fl = dense.aligned16(feat_fl)
     out = torch.empty((T, pix, OUT_COLS), dtype=torch.float32, device=dev)
     # Slots no tile walks (padding, the tail) stay 0.
     contrib = torch.zeros((K,), dtype=torch.float32, device=dev)

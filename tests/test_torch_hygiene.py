@@ -1,5 +1,5 @@
 """The port stands alone: no module of ``gftorf_tpu_torch`` and neither
-``chip_smoke.py`` nor ``chip_bwd_ab.py`` imports JAX or anything of the
+``chip_smoke.py`` nor ``chip_ab.py`` imports JAX or anything of the
 JAX package, and no module builds or loads a kernel when it is
 imported."""
 
@@ -10,7 +10,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SOURCES = sorted((ROOT / "gftorf_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "chip_bwd_ab.py"]
+    ROOT / "chip_smoke.py", ROOT / "chip_ab.py"]
 FORBIDDEN = ("jax", "jaxlib", "gftorf_tpu")
 
 

@@ -172,6 +172,28 @@ def test_warp_rects_hold_their_warps_pixels(tile_w, pix):
         assert bool((area == 32).all())
 
 
+@pytest.mark.parametrize("tile_w,pix", [(8, 512), (16, 512), (32, 512),
+                                        (16, 256), (24, 384), (32, 1024),
+                                        (12, 96)])
+def test_forward_warps_hold_8x4_blocks(tile_w, pix):
+    """The forward's map of threads to pixels (``warp_pixels(blocks=
+    True)``, csrc/warp_cull.cuh::block_pixel) is a permutation of the
+    tile's pixels; where both sides of the tile are multiples of 8 and 4,
+    each warp's 32 pixels fill its 8x4 rectangle, else thread i holds
+    pixel i."""
+    p = dense.warp_pixels(tile_w, pix, blocks=True)
+    assert torch.equal(torch.sort(p).values, torch.arange(pix))
+    origins = torch.tensor([[0, 0], [48, 32]], dtype=torch.int32)
+    rects = dense.warp_rects(origins, tile_w, pix, blocks=True)
+    w = rects[..., 1] - rects[..., 0] + 1
+    h = rects[..., 3] - rects[..., 2] + 1
+    if tile_w % 8 == 0 and (pix // tile_w) % 4 == 0:
+        assert bool(((w == 8) & (h == 4)).all())
+    else:
+        assert torch.equal(p, torch.arange(pix))
+        assert torch.equal(rects, dense.warp_rects(origins, tile_w, pix))
+
+
 def _tile_rows(case):
     w, h, tile_w = case
     d = packed_tile_inputs(3, n=240, tile_w=tile_w, width=w, height=h)
@@ -203,18 +225,17 @@ def test_culls_on_jax_preprocessed_rows(case):
     assert culled > 0.2 * valid
 
 
-def test_whole_tile_cull_changes_no_bit_of_the_plain_backward():
+@pytest.mark.parametrize("direction", ["forward", "backward"])
+def test_whole_tile_cull_changes_no_bit_of_the_plain_backward(direction):
     """A row culled for every warp of its tile touches no pixel there: made
-    invisible (opacity 0), the plain backward's every other gradient row
-    keeps its bits, and its own row is zero either way."""
+    invisible (opacity 0), the plain forward's output and contributing-pixel
+    counts, or the plain backward's every other gradient row, keep their
+    bits, and its own count or gradient row is zero either way."""
     d, feat, counts, origins = _tile_rows((64, 48, 16))
     cfg = d["tcfg"]
     bg = torch.tensor(d["bg_tiles"])
     rects = dense.warp_rects(origins, cfg.tile_w, cfg.tile_pixels)
-    out, _ = dense.composite_forward_plain(feat, bg, counts, origins, cfg)
-    g = torch.tensor(np.random.default_rng(9).uniform(
-        -1, 1, out.shape).astype(np.float32))
-    ref = dense.composite_backward_plain(feat, bg, out, g, counts, origins, cfg, True)
+    out, contrib = dense.composite_forward_plain(feat, bg, counts, origins, cfg)
     hidden = feat.clone()
     gone = torch.zeros(feat.shape[:2], dtype=torch.bool)
     for t in range(feat.shape[0]):
@@ -222,6 +243,16 @@ def test_whole_tile_cull_changes_no_bit_of_the_plain_backward():
         gone[t, :n] = dense.warp_cull_plain(feat[t, :n], rects[t]).all(-1)
     hidden[..., 5] = torch.where(gone, 0.0, feat[..., 5])
     assert int(gone.sum()) > 0
+    if direction == "forward":
+        got_out, got_contrib = dense.composite_forward_plain(hidden, bg, counts,
+                                                             origins, cfg)
+        assert torch.equal(got_out, out)
+        assert torch.equal(got_contrib, contrib)
+        assert not bool(contrib[gone].any())
+        return
+    g = torch.tensor(np.random.default_rng(9).uniform(
+        -1, 1, out.shape).astype(np.float32))
+    ref = dense.composite_backward_plain(feat, bg, out, g, counts, origins, cfg, True)
     got = dense.composite_backward_plain(hidden, bg, out, g, counts, origins, cfg, True)
     assert torch.equal(got, ref)
     assert not bool(ref[gone].any())
