@@ -92,6 +92,29 @@ Phases, each printing lines tagged with its name and raising on failure:
             compositor that grows with the layout's rows (gather, its
             segment-sum backward, the flat gradient's zero-fill), dense
             against flat.
+8. trainer  the Trainer through its CLI (gftorf_tpu_torch.train.__main__.main
+            in this process) on datasets the port's writer puts under
+            build/trainer/: an ftorf "room" scene (16 frames) and a ToRF one
+            (8 frames, .mat intrinsics, a colour camera offset from the ToF
+            camera), both at 320x240, and the verify recipe's 64x48 scene.
+            configs/ftorf.json at full width for 260 iterations (warm-up to
+            100, densify every 50 from 100, the opacity reset at 250, the
+            deform MLP stepping at 201-249, evaluations at 100 and 260, a
+            save and a checkpoint at 260): every record and evaluation
+            finite, num_points changed by the densify events, the artifact
+            tree complete, the saved PLY and deform_model.npz rendering the
+            Trainer's frame (atol 1e-4, rtol 1e-3), the checkpoint resuming
+            to an equal state, the start-up launch check of dense_backward
+            run once, both dense kernels launched in the run. Then
+            configs/torf.json for 30 iterations (two cameras, regions
+            ("dynamic",)); a run whose max_per_tile_limit (256) is below the
+            scene's deepest tile, where the flat fallback must engage and
+            both flat kernels launch; the verify recipe, where mae_d_tof
+            must fall; two identical 8-iteration runs with bitwise-equal
+            losses. Prints ms per iteration, per densify event and per
+            evaluation frame beside the card. ``--drift`` adds the verify
+            recipe without random backgrounds on the card and on the CPU,
+            mae_d_tof and psnr_p side by side at each evaluation.
 
 ``python3 chip_smoke.py --profile`` adds a breakdown of a served frame by
 stage and the device's share of a training step under torch.profiler,
@@ -1755,6 +1778,445 @@ def phase_determinism(scenes, runs):
             "densify stats, metrics) bitwise equal")
 
 
+# ---------------------------------------------------------------- trainer
+
+
+TRAINER_DIR = os.path.join(ROOT, "build", "trainer")
+# The verify recipe: 64x48, 8 frames, 2,000 points, 120 iterations.
+VERIFY_CFG = dict(total_num_views=8, tof_image_width=64, tof_image_height=48,
+                  color_image_width=64, color_image_height=48, depth_range=15.0,
+                  num_points=2000, iterations=120, warm_up=20, use_quad=True,
+                  dynamic=True, dataset_type="quad", random_bg_color=True)
+
+
+class recorded:
+    """Wrap ``owner.name`` for a ``with`` block: each call is timed on the
+    host clock between two device synchronisations and its ms appended to
+    ``self.ms``."""
+
+    def __init__(self, owner, name, device):
+        self.owner, self.name, self.device, self.ms = owner, name, device, []
+
+    def __enter__(self):
+        import torch
+
+        fn = self.orig = getattr(self.owner, self.name)
+        sync = (torch.cuda.synchronize if self.device.type == "cuda"
+                else (lambda: None))
+
+        def wrapped(*a, **k):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            sync()
+            self.ms.append(1e3 * (time.perf_counter() - t0))
+            return out
+
+        setattr(self.owner, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.orig)
+
+
+def reset_launches():
+    from gftorf_tpu_torch.render.kernels import dense, flat
+
+    for fn in (dense.composite_forward_cuda, dense.composite_backward_cuda,
+               flat.composite_forward_flat_cuda, flat.composite_backward_flat_cuda):
+        fn.launches = 0
+
+
+def read_launches():
+    from gftorf_tpu_torch.render.kernels import dense, flat
+
+    return {"dense_forward": dense.composite_forward_cuda.launches,
+            "dense_backward": dense.composite_backward_cuda.launches,
+            "flat_forward": flat.composite_forward_flat_cuda.launches,
+            "flat_backward": flat.composite_backward_flat_cuda.launches}
+
+
+def write_trainer_datasets(device, width=320, height=240, n_ftorf=16, n_torf=8):
+    """The port's writer: an ftorf ``room`` scene and a ToRF-layout one at
+    the configs' image size (so the readers resize nothing), the ToRF one
+    in a real capture's layout (.mat intrinsics, a colour camera offset
+    from the ToF camera by relative_pose.npy: two cameras), and the verify
+    recipe's 64x48 scene."""
+    import shutil
+
+    import numpy as np
+    import scipy.io
+
+    from gftorf_tpu_torch.data.generate import write_dataset
+
+    shutil.rmtree(TRAINER_DIR, ignore_errors=True)
+    paths = {k: os.path.join(TRAINER_DIR, k) for k in ("ftorf", "torf", "verify")}
+    t0 = time.perf_counter()
+    write_dataset(paths["ftorf"], num_frames=n_ftorf, width=width, height=height,
+                  layout="room", seed=SEED + 30, device=device)
+    write_dataset(paths["torf"], num_frames=n_torf, width=width, height=height,
+                  layout="room", torf_layout=True, seed=SEED + 31, device=device)
+    cams = os.path.join(paths["torf"], "cams")
+    for name in ("tof_intrinsics", "color_intrinsics"):
+        k = np.load(os.path.join(cams, f"{name}.npy"))
+        scipy.io.savemat(os.path.join(cams, f"{name}.mat"), {"K": k})
+        os.remove(os.path.join(cams, f"{name}.npy"))
+    rel = np.eye(4, dtype=np.float32)
+    rel[:3, 3] = [0.05, 0.0, 0.0]
+    np.save(os.path.join(cams, "relative_pose.npy"), rel)
+    write_dataset(paths["verify"], num_frames=VERIFY_CFG["total_num_views"],
+                  width=VERIFY_CFG["tof_image_width"],
+                  height=VERIFY_CFG["tof_image_height"], seed=SEED + 32,
+                  device=device)
+    secs = time.perf_counter() - t0
+    log("trainer", f"datasets written by gftorf_tpu_torch.data.generate in "
+        f"{secs:.2f} s: ftorf room {n_ftorf} frames and torf room {n_torf} "
+        f"frames at {width}x{height}, verify {VERIFY_CFG['total_num_views']} "
+        f"frames at 64x48")
+    return paths
+
+
+def train_cli(device, config, model_path, *flags):
+    """``python -m gftorf_tpu_torch.train`` in this process; returns the
+    Trainer, its records and the evaluations in its train_log.jsonl."""
+    from gftorf_tpu_torch.train.__main__ import main
+
+    tr = main(["--config", config, "--model_path", model_path,
+               "--device", device.type, "--quiet", *map(str, flags)])
+    with open(os.path.join(model_path, "train_log.jsonl")) as f:
+        evals = [r for r in map(json.loads, f) if "eval" in r]
+    recs = tr.history
+    bad = [r["iteration"] for r in recs
+           if not all(math.isfinite(r[k]) for k in ("loss", "l1_p", "ema_loss"))]
+    bad += [e["iteration"] for e in evals for split in e["eval"].values()
+            for k, v in split.items() if v is not None and not math.isfinite(v)]
+    if bad:
+        raise AssertionError(f"{model_path}: records not finite at {bad}")
+    if [r["iteration"] for r in recs] != list(range(1, tr.iteration + 1)):
+        raise AssertionError(f"{model_path}: records of iterations "
+                             f"{[r['iteration'] for r in recs]}")
+    return tr, recs, evals
+
+
+def check_artifacts(model_path, it):
+    """The artifact tree of train.py; scene_bounds.png only where matplotlib
+    is installed (the Trainer warns and goes on without it)."""
+    import importlib.util
+
+    plot = ["scene_bounds.png"] if importlib.util.find_spec("matplotlib") else []
+    want = ["train_log.jsonl", "cfg_args_full.json", "cfg_args", "cameras.json",
+            "cameras_full.json", "nerf_normalization.json", "input.ply"] + plot + [
+        f"point_cloud/iteration_{it}/{f}" for f in (
+            "point_cloud.ply", "point_cloud_full.ply", "phase_offset.npy",
+            "dc_offset.npy", "deform_model.npz")]
+    missing = [f for f in want if not os.path.isfile(os.path.join(model_path, f))]
+    if missing:
+        raise AssertionError(f"{model_path}: artifacts missing: {missing}")
+    return len(want)
+
+
+def check_ply_render(tr, it):
+    """The saved PLY and deform MLP, reloaded, render a frame equal to the
+    Trainer's own state (the card-vs-CPU frame tolerance)."""
+    import functools
+
+    import torch
+
+    from gftorf_tpu_torch.data.scene import take_frame
+    from gftorf_tpu_torch.models.deform import apply_deform
+    from gftorf_tpu_torch.train.evaluate import eval_frame
+    from gftorf_tpu_torch.train.export import (
+        load_deform_model,
+        load_gaussians_from_ply,
+    )
+
+    out = os.path.join(tr.cfg.model.model_path, f"point_cloud/iteration_{it}")
+    params = load_gaussians_from_ply(os.path.join(out, "point_cloud_full.ply"),
+                                     tr.cfg.model.sh_degree, device=tr.device)
+    net = load_deform_model(os.path.join(out, "deform_model.npz"),
+                            tr.deform_cfg, device=tr.device)
+    # The Trainer's static, with the depth ceiling for both renders (an
+    # evaluation truncates silently at the training cap).
+    static = tr._static_for(tr.iteration)
+    static = dataclasses.replace(static, **{
+        k: dataclasses.replace(getattr(static, k), max_per_tile=tr.tile_cap_limit)
+        for k in ("config_color", "config_tof")})
+    frame = take_frame(tr.scene.test_frames, 5)
+    ref = eval_frame(static, tr.model.params,
+                     functools.partial(apply_deform, tr.deform, tr.deform_cfg),
+                     tr.model.aux.alive, frame, device=tr.device)
+    got = eval_frame(dataclasses.replace(static, deform_bucket=0), params, net,
+                     torch.ones(params.xyz.shape[0], dtype=torch.bool,
+                                device=tr.device), frame, device=tr.device)
+    for o in (ref[2], got[2]):
+        if int(o.tile_overflow) or bool(o.dup_overflow):
+            raise AssertionError("the PLY check's frame overflowed a buffer")
+    errs = {}
+    for k in ("phasor", "depth", "acc"):
+        a, b = getattr(got[2], k), getattr(ref[2], k)
+        errs[k] = float((a - b).abs().max())
+        if not torch.allclose(a, b, atol=E2E_ATOL, rtol=E2E_RTOL):
+            raise AssertionError(f"PLY render {k} differs from the Trainer's "
+                                 f"by {errs[k]:.3g}")
+    return params.xyz.shape[0], errs
+
+
+def check_resume(tr, path):
+    """A new Trainer resumed from ``path`` holds the state that was saved."""
+    import numpy as np
+
+    from gftorf_tpu_torch.train.loop import Trainer
+    from gftorf_tpu_torch.utils.checkpoint import tree_leaves
+
+    tr2 = Trainer(tr.cfg, startup_artifacts=False, device=tr.device)
+    tr2.load_checkpoint(path)
+    a = list(tree_leaves(tr2._checkpoint_tree()))
+    b = list(tree_leaves(tr._checkpoint_tree()))
+    to_np = lambda x: x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)  # noqa: E731
+    diff = [i for i, (x, y) in enumerate(zip(a, b))
+            if not np.array_equal(to_np(x), to_np(y))]
+    keys = ("iteration", "tile_cap", "dup_factor", "flat_stream",
+            "active_sh_degree", "opacity_reset_interval", "render_bucket",
+            "deform_bucket")
+    meta = [k for k in keys if getattr(tr2, k) != getattr(tr, k)]
+    if len(a) != len(b) or diff or meta:
+        raise AssertionError(f"resumed state differs: leaves {diff}, meta {meta}")
+    return len(a)
+
+
+def trainer_overhead(tr, n=20):
+    """What the Trainer adds to its steps, measured past the run's end
+    (iterations after the last, no event among them): ``n`` bare
+    ``train_step`` calls from the Trainer's state with a synchronise on
+    both sides (as ``[train]`` times a step), ``n`` ``Trainer.step()``
+    iterations back to back (wall over n, the metrics pipelined), and the
+    device's busy share of 10 more iterations under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gftorf_tpu_torch.train.step import train_step
+
+    if tr.device.type != "cuda":
+        return "Trainer overhead not measured on the CPU"
+    bare = []
+    for k in range(n):
+        it, idx = tr.iteration + 1 + k, k % tr.scene.num_train
+        fid = tr.scene.data.train_cameras[idx].frame_id
+        static = tr._static_for(it, flow_frame=fid % 4 == 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_step(static, tr.model, tr.deform, tr.deform_adam,
+                   tr.scene.train_frames, idx, it, tr._rng(it), frame_id=fid)
+        torch.cuda.synchronize()
+        bare.append(1e3 * (time.perf_counter() - t0))
+    tr.drain()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        tr.step()
+    tr.drain()
+    torch.cuda.synchronize()
+    loop_ms = 1e3 * (time.perf_counter() - t0) / n
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(10):
+            tr.step()
+        tr.drain()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    busy, _, spans = device_busy(trace_events(
+        prof, os.path.join(ROOT, "build", "profile", "trace_trainer.json")))
+    share = (f"device busy {busy / 1e4:.3f} ms/iteration, idle share "
+             f"{1 - busy / wall_us:.3f} under the profiler" if spans else
+             "the profiler saw no device activity (busy share not measured)")
+    return (f"bare train_step on the Trainer's state {statistics.median(bare):.3f} "
+            f"ms (median of {n}) against {loop_ms:.3f} ms/iteration of "
+            f"Trainer.step() back to back ({n} iterations, wall over n); {share}")
+
+
+def phase_trainer(device, width=320, height=240, n_ftorf=16, iters=260,
+                  drift=False):
+    """The Trainer through its CLI at full width (module docstring, 8)."""
+    from gftorf_tpu_torch.train import evaluate, loop
+
+    data = write_trainer_datasets(device, width, height, n_ftorf)
+    cfg_ftorf = os.path.join(ROOT, "configs", "ftorf.json")
+    cfg_torf = os.path.join(ROOT, "configs", "torf.json")
+    out = os.path.join(TRAINER_DIR, "out")
+
+    # Full-width ftorf: warm-up ends at 100; densify at 100, 150, 200, 250;
+    # the opacity reset at 250; the deform MLP steps at 201-249 (it pauses
+    # for 200 iterations after each reset, step.py:778).
+    warm, reset, dens0, dens_every = 100, 250, 50, 50
+    reset_launches()
+    with recorded(loop.Trainer, "_densify", device) as dens, \
+            recorded(loop.Trainer, "_reset_opacity", device) as resets, \
+            recorded(loop.Trainer, "check_backward_launch", device) as check, \
+            recorded(evaluate, "eval_frame", device) as evals_ms:
+        t0 = time.perf_counter()
+        tr, recs, evals = train_cli(
+            device, cfg_ftorf, os.path.join(out, "ftorf"),
+            "--source_path", data["ftorf"], "--total_num_views", n_ftorf,
+            "--iterations", iters, "--warm_up", warm,
+            "--densify_from_iter", dens0, "--densification_interval", dens_every,
+            "--opacity_reset_interval", reset,
+            "--test_iterations", warm, iters, "--save_iterations", iters,
+            "--checkpoint_iterations", iters)
+        wall = time.perf_counter() - t0
+    launches = read_launches()
+    if not (launches["dense_forward"] and launches["dense_backward"]):
+        raise AssertionError(f"ftorf Trainer run: dense kernels not launched: "
+                             f"{launches}")
+    if device.type == "cuda" and len(check.ms) != 1:
+        raise AssertionError(f"the start-up launch check ran {len(check.ms)} times")
+    events = [it for it in range(1, iters + 1)
+              if it > dens0 and it % dens_every == 0 and it < tr.opt.densify_until_iter]
+    pts = {r["iteration"]: r["num_points"] for r in recs}
+    changed = [e for e in events if e + 1 in pts and pts[e + 1] != pts[e]]
+    deform_steps = sum(1 for it in range(1, iters + 1)
+                       if it % reset > 200 or it >= tr.opt.densify_until_iter)
+    if len(dens.ms) != len(events) or len(changed) < 2:
+        raise AssertionError(f"densify events {len(dens.ms)} (want {len(events)}), "
+                             f"num_points changed at {changed}")
+    if len(resets.ms) != iters // reset or int(tr.deform_adam.step) != deform_steps:
+        raise AssertionError(f"{len(resets.ms)} opacity resets, deform MLP "
+                             f"stepped {int(tr.deform_adam.step)} times "
+                             f"(want {deform_steps})")
+    if len(evals) != 2:
+        raise AssertionError(f"{len(evals)} evaluations logged, want 2")
+    n_files = check_artifacts(tr.cfg.model.model_path, iters)
+    n_ply, ply_errs = check_ply_render(tr, iters)
+    n_leaves = check_resume(tr, os.path.join(tr.cfg.model.model_path,
+                                             f"chkpnt{iters}.npz"))
+    overhead = trainer_overhead(tr)
+    cap = tr.model.aux.alive.shape[0]
+    past = [r["iter_time"] * 1e3 for r in recs if r["iteration"] > warm]
+    early = [r["iter_time"] * 1e3 for r in recs if 1 < r["iteration"] <= warm]
+    ev_frames = len(evals_ms.ms)
+    log("trainer", f"ftorf full width (configs/ftorf.json, {n_ftorf} frames at "
+        f"{width}x{height}): {iters} iterations in {wall:.1f} s; start-up "
+        f"launch check of dense_backward at L={tr.tile_cap_limit}: "
+        f"{'ok, ' + format(check.ms[0], '.2f') + ' ms' if check.ms else 'not on this device'}; "
+        f"num_points {pts[1]} -> {recs[-1]['num_points']} (changed at densify "
+        f"events {changed} of {events}); {len(resets.ms)} opacity reset; "
+        f"deform MLP stepped {deform_steps} times; evals at {warm} and {iters}: "
+        f"mae_d_tof {evals[0]['eval']['test']['mae_d_tof']:.5f} -> "
+        f"{evals[1]['eval']['test']['mae_d_tof']:.5f}, psnr_p "
+        f"{evals[0]['eval']['test']['psnr_p']:.3f} -> "
+        f"{evals[1]['eval']['test']['psnr_p']:.3f}; {n_files} artifacts; the "
+        f"saved PLY ({n_ply} Gaussians) renders the Trainer's frame (max abs "
+        f"err {max(ply_errs.values()):.3g}); chkpnt{iters}.npz resumes to an "
+        f"equal state ({n_leaves} leaves); kernel launches in the run {launches}")
+    log("trainer", f"timing on {card_line() if device.type == 'cuda' else 'cpu'}: "
+        f"ms/iteration (host median of iter_time) {statistics.median(past):.3f} "
+        f"past warm-up (iterations {warm + 1}-{iters}), "
+        f"{statistics.median(early):.3f} in warm-up (2-{warm}); densify event "
+        f"{statistics.median(dens.ms):.3f} ms (median of {len(dens.ms)}, all "
+        f"{[round(v, 3) for v in dens.ms]}) at capacity {cap}; opacity reset "
+        f"{resets.ms[0]:.3f} ms; eval frame {statistics.median(evals_ms.ms):.3f} "
+        f"ms (median of {ev_frames}); {overhead}")
+    del tr
+
+    # ToRF: two cameras, render regions ("dynamic",). The colour camera is
+    # written at the ToF camera's size (torf.json reads 640x480 at 0.5).
+    tr, recs, evals = train_cli(
+        device, cfg_torf, os.path.join(out, "torf"),
+        "--source_path", data["torf"], "--total_num_views", 8,
+        "--color_image_width", width, "--color_image_height", height,
+        "--color_scale_factor", 1.0, "--iterations", 30, "--warm_up", 10,
+        "--test_iterations", 30)
+    if tr.render_regions != ("dynamic",) or tr.scene.cameras_identical:
+        raise AssertionError(f"torf run: regions {tr.render_regions}, cameras "
+                             f"identical {tr.scene.cameras_identical}")
+    log("trainer", f"torf (configs/torf.json, two cameras, regions "
+        f"{tr.render_regions}): 30 iterations, loss {recs[0]['loss']:.5g} -> "
+        f"{recs[-1]['loss']:.5g}, eval mae_d_tof "
+        f"{evals[0]['eval']['test']['mae_d_tof']:.5f}, median "
+        f"{statistics.median(r['iter_time'] * 1e3 for r in recs[1:]):.3f} ms/iteration")
+    del tr
+
+    # The flat fallback: a ceiling below the scene's deepest tile.
+    reset_launches()
+    tr, recs, _ = train_cli(
+        device, cfg_ftorf, os.path.join(out, "flat"),
+        "--source_path", data["ftorf"], "--total_num_views", n_ftorf,
+        "--iterations", 12, "--max_per_tile", 256, "--max_per_tile_limit", 256,
+        "--test_iterations", 0)
+    launches = read_launches()
+    if device.type == "cuda" and not (tr.flat_stream and tr._flat_auto
+                                      and launches["flat_forward"]
+                                      and launches["flat_backward"]):
+        raise AssertionError(f"flat fallback did not engage: flat_stream "
+                             f"{tr.flat_stream}, launches {launches}")
+    log("trainer", f"flat fallback: max_per_tile_limit 256, flat_stream "
+        f"{tr.flat_stream} (auto {tr._flat_auto}) from iteration 1, 12 "
+        f"iterations, loss {recs[0]['loss']:.5g} -> {recs[-1]['loss']:.5g}, "
+        f"tile_overflow {max(r['tile_overflow'] for r in recs)}; kernel "
+        f"launches in the run {launches}")
+    del tr
+
+    # Health: the verify recipe; mae_d_tof must fall.
+    vcfg = os.path.join(TRAINER_DIR, "verify.json")
+    with open(vcfg, "w") as f:
+        json.dump(dict(VERIFY_CFG, source_path=data["verify"]), f)
+    _, _, evals = train_cli(device, vcfg, os.path.join(out, "verify"),
+                            "--test_iterations", 1, 60, 120)
+    mae = [e["eval"]["test"]["mae_d_tof"] for e in evals]
+    if not mae[-1] < mae[0]:
+        raise AssertionError(f"verify recipe: mae_d_tof did not fall: {mae}")
+    log("trainer", f"verify recipe (64x48, 120 iterations): mae_d_tof at "
+        f"1/60/120 {[round(v, 5) for v in mae]}, psnr_p "
+        f"{[round(e['eval']['test']['psnr_p'], 3) for e in evals]}")
+
+    # Determinism: two identical short full-width runs.
+    losses = []
+    for k in range(2):
+        _, recs, _ = train_cli(
+            device, cfg_ftorf, os.path.join(out, f"repeat{k}"),
+            "--source_path", data["ftorf"], "--total_num_views", n_ftorf,
+            "--iterations", 8, "--warm_up", 4, "--test_iterations", 0)
+        losses.append([r["loss"] for r in recs])
+    if losses[0] != losses[1]:
+        raise AssertionError(f"two identical runs differ: {losses}")
+    log("trainer", f"determinism: two identical 8-iteration runs (warm-up "
+        f"ends at 4, random bg) give bitwise-equal losses {losses[0]}")
+
+    if drift:
+        phase_trainer_drift(device, data["verify"])
+    log("trainer", "ok")
+
+
+def phase_trainer_drift(device, source):
+    """The verify recipe without random backgrounds (the card's and the
+    CPU's generators differ) on the card and on the CPU: mae_d_tof and
+    psnr_p at each evaluation, side by side. Twice: as the recipe is, where
+    the deform MLP never steps (it pauses for 200 iterations after each
+    opacity reset, the first at iteration 0), and with densify_until_iter
+    40, from where only the deform MLP trains (81 steps)."""
+    import torch
+
+    runs = (("recipe", {}), ("deform from 40", {"densify_until_iter": 40}))
+    for k, (tag, extra) in enumerate(runs):
+        vcfg = os.path.join(TRAINER_DIR, "drift.json")
+        with open(vcfg, "w") as f:
+            json.dump(dict(VERIFY_CFG, source_path=source, random_bg_color=False,
+                           **extra), f)
+        rows = {}
+        for dev in (device, torch.device("cpu")):
+            t0 = time.perf_counter()
+            tr, _, evals = train_cli(
+                dev, vcfg, os.path.join(TRAINER_DIR, "out", f"drift{k}_{dev}"),
+                "--test_iterations", 1, 30, 60, 90, 120)
+            rows[dev.type] = [(e["iteration"], e["eval"]["test"]["mae_d_tof"],
+                               e["eval"]["test"]["psnr_p"]) for e in evals]
+            log("drift", f"{tag}, {dev.type}: {time.perf_counter() - t0:.1f} s, "
+                f"deform MLP steps {int(tr.deform_adam.step)}")
+        for (it, m_a, p_a), (_, m_b, p_b) in zip(rows[device.type], rows["cpu"]):
+            log("drift", f"{tag}, iteration {it}: mae_d_tof card {m_a!r} cpu "
+                f"{m_b!r} (rel diff {abs(m_a - m_b) / abs(m_b):.3g}); psnr_p card "
+                f"{p_a!r} cpu {p_b!r} (diff {p_a - p_b:.4g})")
+
+
 # ---------------------------------------------------------------- phase 7
 
 
@@ -2059,6 +2521,27 @@ def phase_timing(scenes, runs, flat_runs, worst, launches):
 # ------------------------------------------------------- --profile only
 
 
+def trace_events(prof, path):
+    """Write the profiler's chrome trace to ``path`` and read its events."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        return json.load(f)["traceEvents"]
+
+
+def device_busy(events):
+    """(busy us, us by device op name, spans): the union of the kernel,
+    memcpy and memset intervals of a trace."""
+    spans = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end, by_name = 0.0, -1.0, {}
+    for a, z, name in spans:
+        busy += max(0.0, z - max(a, end))
+        end = max(end, z)
+        by_name[name] = by_name.get(name, 0.0) + (z - a)
+    return busy, by_name, spans
+
+
 def phase_profile(scenes, reps=5):
     """Where a served frame's time goes. Per stage of one ToF render:
     host clock around each synchronised stage, median of ``reps``. Per
@@ -2143,21 +2626,12 @@ def phase_profile(scenes, reps=5):
             wall_us = 1e6 * (time.perf_counter() - t0)
         path = os.path.join(ROOT, "build", "profile",
                             f"trace_{tag.replace(' ', '_')}.json")
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-        spans = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
-                       if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+        events = trace_events(prof, path)
+        busy, by_name, spans = device_busy(events)
         if not spans:
             log("profile", f"{tag}: the profiler saw no device activity "
                 "(device busy share not measured)")
             continue
-        busy, end, by_name = 0.0, -1.0, {}
-        for a, z, name in spans:
-            busy += max(0.0, z - max(a, end))
-            end = max(end, z)
-            by_name[name] = by_name.get(name, 0.0) + (z - a)
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
         nf = len(s.frames)
         log("profile", f"{tag} {nf} frames under the profiler: wall "
@@ -2187,21 +2661,12 @@ def phase_profile_train(run, steps=4):
         wall_us = 1e6 * (time.perf_counter() - t0)
     tag = f"{run.name}{'_flat' if run.flat else ''}"
     path = os.path.join(ROOT, "build", "profile", f"trace_train_{tag}.json")
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    prof.export_chrome_trace(path)
-    with open(path) as f:
-        events = json.load(f)["traceEvents"]
-    spans = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
-                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    events = trace_events(prof, path)
+    busy, by_name, spans = device_busy(events)
     if not spans:
         log("profile", f"{tag} training: the profiler saw no device "
             "activity (device busy share not measured)")
         return
-    busy, end, by_name = 0.0, -1.0, {}
-    for a, z, name in spans:
-        busy += max(0.0, z - max(a, end))
-        end = max(end, z)
-        by_name[name] = by_name.get(name, 0.0) + (z - a)
     # Kernel -> launching runtime call (by correlation id) -> enclosing span.
     regions = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
                if e.get("cat") == "user_annotation"
@@ -2266,6 +2731,7 @@ def main():
     phase_train_vs_cpu(device)
     phase_deep_tile(device)
     phase_determinism(scenes + flat_scenes, runs + flat_runs)
+    phase_trainer(device, drift="--drift" in sys.argv[1:])
     kernels = phase_timing(scenes, runs, flat_runs, worst, launches)
     if "--profile" in sys.argv[1:]:
         phase_profile(scenes + flat_scenes)

@@ -7,13 +7,13 @@ from the reference's arguments/__init__.py:50-207. Precedence: dataclass
 defaults < JSON config < CLI overrides (same as train.py:624-626).
 
 TPU-only knobs are accepted so that configs load, and are no-ops on the
-GPU: ``check_vmem_cap`` (Pallas scoped-VMEM check), ``deform_precision``
-(MXU pass tiers; the port's deform MLP always runs in fp32),
-``use_pallas`` (the compositor is chosen by the tensors' device) and the
-``GFTORF_*_CHUNK`` environment variables (Pallas lane chunks), which the
-port never reads: the dense ones and ``GFTORF_FLAT_FWD_CHUNK`` /
-``GFTORF_FLAT_BWD_CHUNK`` alike (the flat stream's alignment is fixed at
-256, the JAX package's default).
+GPU: ``deform_precision`` (MXU pass tiers; the port's deform MLP always
+runs in fp32), ``use_pallas`` (the compositor is chosen by the tensors'
+device) and the ``GFTORF_*_CHUNK`` environment variables (Pallas lane
+chunks), which the port never reads: the dense ones and
+``GFTORF_FLAT_FWD_CHUNK`` / ``GFTORF_FLAT_BWD_CHUNK`` alike (the flat
+stream's alignment is fixed at 256, the JAX package's default).
+``check_vmem_cap`` keeps its switch and changes its check (see TpuParams).
 """
 
 from __future__ import annotations
@@ -200,33 +200,32 @@ class TpuParams:
     use_pallas: bool = True
     # Flat sorted-stream compositor (render/kernels/flat.py): each tile's
     # instances are one segment of the depth-sorted duplicate stream, so
-    # tile depth is unbounded (no truncation at max_per_tile). It is
-    # RasterConfig.flat_stream, which the JAX Trainer copies from here; the
-    # port has no Trainer yet, so its callers set RasterConfig.flat_stream
-    # themselves. The port takes the path on either device (the Hopper
-    # kernels csrc/flat_{forward,backward}.cu on the card, their plain
-    # versions on the CPU), where the JAX package takes it only on a TPU.
+    # tile depth is unbounded (no truncation at max_per_tile). The Trainer
+    # copies it into RasterConfig.flat_stream. The port takes the path on
+    # either device (the Hopper kernels csrc/flat_{forward,backward}.cu on
+    # the card, their plain versions on the CPU), where the JAX package
+    # takes it only on a TPU.
     flat_stream: bool = False
-    # What to do when a scene's deepest tile outgrows the dense Pallas
-    # backward's VMEM-calibrated max_per_tile ceiling
-    # (pallas_composite.max_feasible_tile_cap):
+    # What the Trainer does when a scene's deepest tile outgrows
+    # max_per_tile_limit:
     #   "flat"     — switch to the exact flat-stream compositor (no
     #                tile-depth bound) and switch back once the scene
     #                thins out. Default: the reference rasterizer is
     #                never lossy (rasterizer_impl.cu:311 sizes buffers
-    #                exactly).
+    #                exactly). Available on CUDA (the JAX package: on a
+    #                TPU); on the CPU the Trainer truncates, as the JAX
+    #                package does there.
     #   "truncate" — keep the dense kernels and drop the deepest
     #                instances with a one-time warning (explicit opt-in).
-    # The port has the flat compositor (flat_stream above) but no Trainer
-    # yet, and the switch on overflow is the Trainer's, so nothing in the
-    # port reads this field yet.
     tile_overflow_fallback: str = "flat"
-    # Verify at Trainer startup (TPU only) that the dense backward
-    # kernel still compiles at the calibrated VMEM ceiling the trainer
-    # will clamp to — the calibration table is point-in-time compiler
-    # truth, and a toolchain change must fail loudly at startup with a
-    # recalibration hint instead of crashing mid-campaign (AOT compile,
-    # ~free after the first run via the persistent compilation cache).
+    # Verify at Trainer start-up that the dense backward kernel launches
+    # at max_per_tile_limit depth, with the step's depth-distortion gate
+    # and flow on (CUDA only): the Trainer launches
+    # composite_backward_cuda once and raises if the card refuses it. The
+    # JAX package's check is a compile of its Pallas kernel at the
+    # VMEM-calibrated ceiling (render/vmem_check.py); the Hopper kernels
+    # stage instances through shared memory in batches and have no
+    # tile-depth ceiling, so the port clamps nothing.
     check_vmem_cap: bool = True
     # Gather alive rows into a next-pow2 bucket before rasterization so
     # per-Gaussian preprocess cost tracks the live count, not capacity.

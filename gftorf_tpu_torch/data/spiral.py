@@ -75,3 +75,13 @@ def get_render_poses_spiral(focal_length, bounds, poses, n_views=60,
     out[:, :3, :4] = look_at(forwards, up, centers)
     return out
 
+
+def recenter_poses(poses):
+    """Re-express (N, 4, 4) c2w poses relative to their average pose.
+    Returns (recentred poses, the inverse anchor transform)."""
+    anchor = np.eye(4)
+    anchor[:3, :4] = average_pose(poses[:, :3, :4])
+    inv_anchor = np.linalg.inv(anchor)
+    out = poses.copy()
+    out[:, :3, :4] = (inv_anchor @ poses)[:, :3, :4]
+    return out, inv_anchor

@@ -93,3 +93,20 @@ def eval_sh(degree: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
     basis = sh_basis(degree, dirs)
     k = num_sh_coeffs(degree)
     return (sh[..., :k] @ basis[..., None])[..., 0]
+
+
+def rgb2sh(rgb):
+    return (rgb - 0.5) / SH_C0
+
+
+def sh2rgb(sh):
+    return sh * SH_C0 + 0.5
+
+
+# Phase/amplitude use the same affine packing as RGB in the reference.
+def pa2sh(pa):
+    return (pa - 0.5) / SH_C0
+
+
+def sh2pa(sh):
+    return sh * SH_C0 + 0.5

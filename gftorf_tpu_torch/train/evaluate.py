@@ -1,14 +1,25 @@
-"""Evaluation render: port of ``gftorf_tpu/train/evaluate.py::eval_frame``
-(the training_report metrics of train.py:508-603 for one frame)."""
+"""Evaluation: port of ``gftorf_tpu/train/evaluate.py``, the
+training_report metrics (train.py:508-603): ``eval_frame`` renders one
+frame, ``evaluate_split`` averages a split's frames and
+``evaluate_and_report`` reports the test and train splits."""
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
+from gftorf_tpu_torch.models.deform import apply_deform
 from gftorf_tpu_torch.ops.tof import depth_from_tof
 from gftorf_tpu_torch.render.rasterize import rasterize
 from gftorf_tpu_torch.train import losses as L
-from gftorf_tpu_torch.train.step import FrameData, StepStatic, _compose, _query_deform
+from gftorf_tpu_torch.train.step import (
+    FrameData,
+    StepStatic,
+    _compose,
+    _query_deform,
+    _take_frame,
+)
 from gftorf_tpu_torch.utils.runtime import check_on
 
 
@@ -87,3 +98,48 @@ def eval_frame(static: StepStatic, params, deform, alive, frame: FrameData,
         metrics["l2_d_tof"] = L.l2_loss(depth_tof, frame.gt_distance)
         metrics["mae_d_tof"] = L.l1_loss(depth_tof, frame.gt_distance)
     return metrics, out_color, out_tof
+
+
+def evaluate_split(trainer, frames: FrameData, n_frames: int,
+                   max_frames: int = 0) -> dict:
+    """Mean of ``eval_frame``'s metrics (and LPIPS when its weights are
+    there, else ``lpips: None``) over the first frames of a split."""
+    from gftorf_tpu_torch.utils.metrics import lpips, lpips_available
+
+    static = trainer._static_for(trainer.iteration or 1)
+    deform = functools.partial(apply_deform, trainer.deform, trainer.deform_cfg)
+    params, alive = trainer.model.params, trainer.model.aux.alive
+    use_lpips = lpips_available()
+    totals, count = None, 0
+    for i in range(n_frames if not max_frames else min(n_frames, max_frames)):
+        frame = _take_frame(frames, i)
+        metrics, out_color, _ = eval_frame(static, params, deform, alive, frame,
+                                           device=trainer.device)
+        # One host read a frame, in sorted key order as the JAX package's
+        # jitted dict returns them.
+        names = sorted(metrics)
+        metrics = dict(zip(names, torch.stack([metrics[k] for k in names]).tolist()))
+        if use_lpips:
+            metrics["lpips"] = float(lpips(out_color.color, frame.gt_image))
+        if totals is None:
+            totals = dict(metrics)
+        else:
+            for k, v in metrics.items():
+                totals[k] += v
+        count += 1
+    out = {k: v / count for k, v in totals.items()}
+    if not use_lpips:
+        out["lpips"] = None
+    return out
+
+
+def evaluate_and_report(trainer, max_frames: int = 0) -> dict:
+    scene = trainer.scene
+    out = {"test": evaluate_split(trainer, scene.test_frames,
+                                  len(scene.data.test_cameras), max_frames)}
+    if scene.test_frames is not scene.train_frames:
+        out["train"] = evaluate_split(trainer, scene.train_frames,
+                                      scene.num_train, max_frames)
+    else:
+        out["train"] = out["test"]
+    return out

@@ -1,25 +1,87 @@
-"""Inference-artifact loading: how a trained model arrives to be served.
+"""Inference artifacts: PLYs, offsets and deform weights, written and
+loaded.
 
-Port of the loading half of ``gftorf_tpu/train/export.py``: the
-``point_cloud_full.ply`` written by ``save_scene_artifacts`` (attribute
-names of the reference's GaussianModel.save_ply, gaussian_model.py:315-367)
-and the ``deform_model.npz`` pytree of the deform MLP.
+Port of ``gftorf_tpu/train/export.py`` (Scene.save, scene/__init__.py:
+127-136): ``point_cloud.ply`` (the SIBR-compatible subset),
+``point_cloud_full.ply`` (adds the phase/amp SH and seg colors),
+``phase_offset.npy`` / ``dc_offset.npy`` and the ``deform_model.npz``
+pytree of the deform MLP, in the JAX package's layout. PLY attribute names
+are those of the reference's GaussianModel.save_ply
+(gaussian_model.py:315-367), so either package and the reference's
+tooling open the other's models.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
 from gftorf_tpu_torch.models.deform import DeformConfig, DeformNetwork
-from gftorf_tpu_torch.utils.checkpoint import load_pytree
-from gftorf_tpu_torch.utils.ply import read_ply
+from gftorf_tpu_torch.utils.checkpoint import load_pytree, save_pytree
+from gftorf_tpu_torch.utils.ply import read_ply, write_ply
 from gftorf_tpu_torch.weights import (
+    deform_dict_to_numpy,
     deform_params_from_numpy,
     gaussian_params_from_numpy,
+    gaussian_params_to_numpy,
 )
 
 # jax.tree.flatten orders a dict's leaves by sorted key.
 _HEADS_SORTED = tuple(sorted(("xyz", "rot", "r", "g", "b", "a")))
+
+
+def gaussian_ply_props(params, alive, full: bool) -> dict:
+    """Ordered property dict of the alive rows, for a PLY."""
+    idx = np.where(alive.cpu().numpy())[0]
+    p = {k: v[idx] for k, v in gaussian_params_to_numpy(params).items()
+         if k not in ("phase_offset", "dc_offset")}
+    n = len(idx)
+    props = {}
+    props["x"], props["y"], props["z"] = p["xyz"].T.astype(np.float32)
+    for name in ("nx", "ny", "nz"):
+        props[name] = np.zeros(n, np.float32)
+    # colors: (N, M, 3) -> dc (3) + rest (3*(M-1)), channel-major like the
+    # reference's transpose(1, 2).flatten (gaussian_model.py:345-346)
+    sh = p["sh_color"]
+    m = sh.shape[1]
+    for i in range(3):
+        props[f"f_dc_{i}"] = sh[:, 0, i].astype(np.float32)
+    rest = sh[:, 1:, :].transpose(0, 2, 1).reshape(n, -1)
+    for i in range(rest.shape[1]):
+        props[f"f_rest_{i}"] = rest[:, i].astype(np.float32)
+    props["opacity"] = p["opacity"][:, 0].astype(np.float32)
+    for i in range(p["scaling"].shape[1]):
+        props[f"scale_{i}"] = p["scaling"][:, i].astype(np.float32)
+    for i in range(4):
+        props[f"rot_{i}"] = p["rotation"][:, i].astype(np.float32)
+    if full:
+        for name in ("phase", "amp"):
+            sh_pa = p[f"sh_{name}"]
+            props[f"{name}_f_dc_0"] = sh_pa[:, 0].astype(np.float32)
+            for i in range(m - 1):
+                props[f"{name}_f_rest_{i}"] = sh_pa[:, 1 + i].astype(np.float32)
+        for i in range(3):
+            props[f"f_seg_color_{i}"] = p["seg_color"][:, i].astype(np.float32)
+    return props
+
+
+def save_scene_artifacts(trainer, iteration: int) -> str:
+    """Write point_cloud/iteration_N/ under the model path; returns it."""
+    out = os.path.join(trainer.cfg.model.model_path,
+                       f"point_cloud/iteration_{iteration}")
+    os.makedirs(out, exist_ok=True)
+    params, alive = trainer.model.params, trainer.model.aux.alive
+    write_ply(os.path.join(out, "point_cloud.ply"),
+              gaussian_ply_props(params, alive, full=False))
+    write_ply(os.path.join(out, "point_cloud_full.ply"),
+              gaussian_ply_props(params, alive, full=True))
+    np.save(os.path.join(out, "phase_offset.npy"),
+            params.phase_offset.cpu().numpy())
+    np.save(os.path.join(out, "dc_offset.npy"), params.dc_offset.cpu().numpy())
+    save_pytree(os.path.join(out, "deform_model.npz"),
+                deform_dict_to_numpy(trainer.deform))
+    return out
 
 
 def load_gaussians_from_ply(path: str, sh_degree: int = 3, device=None):

@@ -513,12 +513,13 @@ def _take_frame(frames: FrameData, idx) -> FrameData:
 
 
 def _frame_loss(static: StepStatic, w: LossWeights, p: GaussianParams, dfp,
-                means2d_zero, aux, frame: FrameData, generator):
+                means2d_zero, aux, frame: FrameData, generator, fid=None):
     """One camera's loss and StepAux (the ``per_frame`` of step.py:661-1027),
-    with the loss weights ``w`` of this iteration."""
+    with the loss weights ``w`` of this iteration. ``fid`` is the frame's
+    id when the caller knows it (read from the frame otherwise)."""
     n_points = p.xyz.shape[0]
     dev = p.xyz.device
-    fid = int(frame.frame_id)
+    fid = int(frame.frame_id) if fid is None else int(fid)
     mlp = functools.partial(apply_deform, dfp, static.deform)
     cc, ct = static.config_color, static.config_tof
     hc, wc, ht, wt = cc.height, cc.width, ct.height, ct.width
@@ -741,7 +742,8 @@ def _frame_loss(static: StepStatic, w: LossWeights, p: GaussianParams, dfp,
 
 def train_step(static: StepStatic, model: GaussianModelState, deform,
                deform_adam, frames: FrameData, idx, it,
-               generator: Optional[torch.Generator] = None):
+               generator: Optional[torch.Generator] = None,
+               frame_id: Optional[int] = None):
     """One training iteration on one device (step.py:609-1141).
 
     Args:
@@ -755,6 +757,8 @@ def train_step(static: StepStatic, model: GaussianModelState, deform,
         generator: a ``torch.Generator`` on the device, for the random
             background (``static.random_bg``); it takes the place of the
             JAX package's ``fold_in(base_key, it)``.
+        frame_id: the frame's id, when the caller knows it on the host
+            (the Trainer does); otherwise it is read from the device.
 
     Returns (new_model, new_deform, new_deform_adam, metrics) where
     metrics is a float32 vector in ``METRIC_NAMES`` order. The inputs are
@@ -788,7 +792,7 @@ def train_step(static: StepStatic, model: GaussianModelState, deform,
     # of a step (chip_smoke.py --profile).
     with record_function("train_step.forward"):
         total, sa = _frame_loss(static, _weights_at(static, it), p, dfp,
-                                means2d_zero, aux, frame, generator)
+                                means2d_zero, aux, frame, generator, frame_id)
 
     with record_function("train_step.backward"):
         leaves = ((list(p) + [means2d_zero] if grad_gauss else [])

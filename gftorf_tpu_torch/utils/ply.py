@@ -1,6 +1,7 @@
-"""Minimal PLY reader (binary little-endian or ascii), replacing plyfile.
+"""Minimal PLY reader (binary little-endian or ascii) and writer (binary
+little-endian), replacing plyfile.
 
-The port's own copy of ``gftorf_tpu/utils/ply.py::read_ply``: a single
+The port's own copy of ``gftorf_tpu/utils/ply.py``: a single
 'vertex' element with scalar properties, in the layouts the reference's
 storePly/save_ply write (dataset_readers.py:127-150,
 gaussian_model.py:340-367), so trained models from either package load.
@@ -8,6 +9,7 @@ gaussian_model.py:340-367), so trained models from either package load.
 
 from __future__ import annotations
 
+import os
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -25,6 +27,28 @@ _DTYPES = {
     "ushort": np.uint16,
     "char": np.int8,
 }
+_NAMES = {np.dtype(np.float32): "float", np.dtype(np.float64): "double",
+          np.dtype(np.uint8): "uchar", np.dtype(np.int32): "int"}
+
+
+def write_ply(path: str, props: Dict[str, np.ndarray]) -> None:
+    """Write a vertex-only PLY. props: ordered name -> (N,) array."""
+    names = list(props.keys())
+    n = len(next(iter(props.values())))
+    rec = np.empty(n, dtype=[(name, np.asarray(props[name]).dtype)
+                             for name in names])
+    for name in names:
+        arr = np.asarray(props[name])
+        if arr.shape != (n,):
+            raise ValueError(f"{name}: shape {arr.shape}, expected ({n},)")
+        rec[name] = arr
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        header = ["ply", "format binary_little_endian 1.0", f"element vertex {n}"]
+        header += [f"property {_NAMES[rec.dtype[name]]} {name}" for name in names]
+        header.append("end_header")
+        f.write(("\n".join(header) + "\n").encode("ascii"))
+        rec.tofile(f)
 
 
 def read_ply(path: str) -> Dict[str, np.ndarray]:
