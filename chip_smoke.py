@@ -116,6 +116,31 @@ Phases, each printing lines tagged with its name and raising on failure:
             recipe without random backgrounds on the card and on the CPU,
             mae_d_tof and psnr_p side by side at each evaluation.
 
+9. render  the render CLI (gftorf_tpu_torch.render.__main__.main in this
+            process) on the [trainer] phase's saved models, copied under
+            build/render/. The ftorf model at full width: the whole test
+            split (16 frames) with video and --proxy_pcd (16 more frames);
+            dense_forward (or flat_forward, where a frame outgrows
+            max_per_tile_limit) launches once per render, re-renders of a
+            frame that overflowed the loaded max_per_tile included, and
+            dense_backward once (the Trainer's start-up check); every file
+            of the tree is there; two frames' depth .npy are bitwise equal to
+            eval_frame in this process, and dense_forward is held against
+            its plain version at the render's shapes; tile_overflow is
+            logged per frame. The same CLI with --device cpu --max_frames 2:
+            .npy within atol 1e-4, rtol 1e-3, PNGs at most 1 level apart on
+            at most 1 % of pixels, both on all but 1e-4 of the pixels
+            (where one instance's alpha within rounding of the 1/255 cutoff
+            counts on one device and not the other). A copy with flat_stream set in its
+            config: flat_forward launches once per render and every PNG and
+            .npy equals the dense render bitwise. The torf model: the
+            spiral and freeze-frame spiral paths, their frames differing.
+            render_traj on the ftorf model: finite tracks, traj/,
+            depth_q*/, quad_q*/ and both panels. The train CLI with --debug
+            true at the verify recipe's size: every tmp_debug_* directory.
+            Prints ms/frame of the render CLI (render and writing, host
+            medians) beside the card.
+
 ``python3 chip_smoke.py --profile`` adds a breakdown of a served frame by
 stage and the device's share of a training step under torch.profiler,
 dense and flat, and traces under build/profile/; without arguments the
@@ -1792,10 +1817,11 @@ VERIFY_CFG = dict(total_num_views=8, tof_image_width=64, tof_image_height=48,
 class recorded:
     """Wrap ``owner.name`` for a ``with`` block: each call is timed on the
     host clock between two device synchronisations and its ms appended to
-    ``self.ms``."""
+    ``self.ms``, its return value to ``self.results``."""
 
     def __init__(self, owner, name, device):
-        self.owner, self.name, self.device, self.ms = owner, name, device, []
+        self.owner, self.name, self.device = owner, name, device
+        self.ms, self.results = [], []
 
     def __enter__(self):
         import torch
@@ -1810,6 +1836,7 @@ class recorded:
             out = fn(*a, **k)
             sync()
             self.ms.append(1e3 * (time.perf_counter() - t0))
+            self.results.append(out)
             return out
 
         setattr(self.owner, self.name, wrapped)
@@ -2124,7 +2151,7 @@ def phase_trainer(device, width=320, height=240, n_ftorf=16, iters=260,
         "--source_path", data["torf"], "--total_num_views", 8,
         "--color_image_width", width, "--color_image_height", height,
         "--color_scale_factor", 1.0, "--iterations", 30, "--warm_up", 10,
-        "--test_iterations", 30)
+        "--test_iterations", 30, "--save_iterations", 30)
     if tr.render_regions != ("dynamic",) or tr.scene.cameras_identical:
         raise AssertionError(f"torf run: regions {tr.render_regions}, cameras "
                              f"identical {tr.scene.cameras_identical}")
@@ -2215,6 +2242,361 @@ def phase_trainer_drift(device, source):
             log("drift", f"{tag}, iteration {it}: mae_d_tof card {m_a!r} cpu "
                 f"{m_b!r} (rel diff {abs(m_a - m_b) / abs(m_b):.3g}); psnr_p card "
                 f"{p_a!r} cpu {p_b!r} (diff {p_a - p_b:.4g})")
+
+
+# ---------------------------------------------------------------- render
+
+
+RENDER_DIR = os.path.join(ROOT, "build", "render")
+RENDER_CHANNELS = ("color", "real", "imag", "amp", "depth", "depth_norm",
+                   "depth_tof", "dd")
+# Rendered maps, card against CPU: .npy maps within the frame tolerance,
+# PNGs differing on at most 1 % of a channel's pixels, by at most 1 level,
+# both on all but FLIP_FRAC of the pixels (the kernels' contrib-lane
+# allowance): where one instance's alpha lies within rounding of the 1/255
+# cutoff, it counts on one device and not on the other (preprocess rounds
+# differently on the card and the CPU), and moves the pixel by its whole
+# contribution (PERF.md § 6).
+PNG_LEVELS, PNG_FRAC = 1, 0.01
+FLIP_FRAC = CONTRIB_FRAC
+
+
+def copy_model(src, dst, it, flat_stream=None):
+    """The files the render path reads (cfg_args_full.json and
+    point_cloud/iteration_<it>/) under ``dst``; optionally with
+    ``flat_stream`` set in the copy's config."""
+    import shutil
+
+    art = os.path.join("point_cloud", f"iteration_{it}")
+    shutil.copytree(os.path.join(src, art), os.path.join(dst, art))
+    with open(os.path.join(src, "cfg_args_full.json")) as f:
+        cfg = json.load(f)
+    if flat_stream is not None:
+        cfg["flat_stream"] = flat_stream
+    with open(os.path.join(dst, "cfg_args_full.json"), "w") as f:
+        json.dump(cfg, f, indent=1)
+    return dst
+
+
+def render_cli(model_path, *flags):
+    from gftorf_tpu_torch.render.__main__ import main
+
+    return main(["--model_path", model_path, *map(str, flags)])
+
+
+def missing_files(root, names):
+    return [n for n in names if not os.path.isfile(os.path.join(root, n))]
+
+
+def split_files(split_dir, n, quad, gifs=True):
+    chans = RENDER_CHANNELS + (("quad",) if quad else ())
+    names = [f"{ch}/{i:04d}.png" for ch in chans for i in range(n)]
+    names += [f"{ch}/{i:04d}.npy" for ch in ("depth", "depth_tof")
+              for i in range(n)]
+    return names + ([f"{ch}.gif" for ch in chans] if gifs and n > 1 else [])
+
+
+def png_diff(a, b):
+    """(largest level difference, share of pixels that differ, share of
+    pixels that differ by more than PNG_LEVELS)."""
+    import numpy as np
+
+    d = np.abs(a.astype(np.int32) - b.astype(np.int32))
+    if d.ndim == 3:
+        d = d.max(-1)
+    return int(d.max()), float((d > 0).mean()), float((d > PNG_LEVELS).mean())
+
+
+def check_cutoff_flips(a, b, what):
+    """Hold two renders of a map (card, CPU) at the frame tolerance on all
+    but FLIP_FRAC of its pixels; returns the count of pixels past it."""
+    import numpy as np
+
+    past = ~np.isclose(a, b, atol=E2E_ATOL, rtol=E2E_RTOL)
+    if past.mean() > FLIP_FRAC:
+        raise AssertionError(
+            f"{what}: card and CPU differ by up to {np.abs(a - b).max():.3g} "
+            f"on {int(past.sum())} pixels past atol {E2E_ATOL} rtol {E2E_RTOL}")
+    return int(past.sum())
+
+
+def cutoff_evidence(model, it, record, device):
+    """Where the card's and the CPU's depth of test frame 0 part: the
+    deform MLP's outputs on both devices for every Gaussian (t = 0.3), and
+    the accumulated alpha at the pixels past the frame tolerance (one
+    instance at the 1/255 cutoff moves it by at most 1/255)."""
+    import functools
+
+    import torch
+
+    from gftorf_tpu_torch import render_sets
+    from gftorf_tpu_torch.data.scene import take_frame
+    from gftorf_tpu_torch.models.deform import apply_deform
+    from gftorf_tpu_torch.train.evaluate import eval_frame
+
+    outs, d_xyz = [], []
+    for dev in (device, torch.device("cpu")):
+        tr, _, _ = render_sets.load_trained(model, it, dev)
+        tr.tile_cap, tr.dup_factor = record["max_per_tile"], record["dup_factor"]
+        tr.flat_stream = record["flat_stream"]
+        deform = functools.partial(apply_deform, tr.deform, tr.deform_cfg)
+        _, _, out = eval_frame(tr._static_for(it), tr.model.params, deform,
+                               tr.model.aux.alive,
+                               take_frame(tr.scene.test_frames, 0),
+                               device=tr.device)
+        outs.append(out)
+        n = tr.model.params.xyz.shape[0]
+        d_xyz.append(deform(tr.model.params.xyz / tr.scene.scene_extent,
+                            torch.full((n, 1), 0.3, device=tr.device))[0].cpu())
+    card, cpu = ([o.depth.cpu(), o.acc.cpu()] for o in outs)
+    past = ~torch.isclose(card[0], cpu[0], atol=E2E_ATOL, rtol=E2E_RTOL)
+    acc = (card[1] - cpu[1]).abs()[past]
+    return (f"frame 0 in process: deform MLP outputs card against CPU "
+            f"{float((d_xyz[0] - d_xyz[1]).abs().max()):.3g}, {int(past.sum())} "
+            f"depth pixel(s) past the tolerance, where acc differs by "
+            f"{[round(v, 6) for v in acc.tolist()]} (1/255 = 0.003922)")
+
+
+def phase_render(device, iters=260, torf_iters=30):
+    """The render CLI on the [trainer] phase's saved models (module
+    docstring, 9); returns each kernel's launches in the counted renders."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from gftorf_tpu_torch import render_sets, render_traj
+    from gftorf_tpu_torch.data.scene import take_frame
+    from gftorf_tpu_torch.models.deform import apply_deform
+    from gftorf_tpu_torch.render.kernels import dense, flat
+    from gftorf_tpu_torch.train import loop
+    from gftorf_tpu_torch.train.evaluate import eval_frame
+    from gftorf_tpu_torch.utils.image_io import read_png
+
+    shutil.rmtree(RENDER_DIR, ignore_errors=True)
+    trained = os.path.join(TRAINER_DIR, "out")
+    main = copy_model(os.path.join(trained, "ftorf"),
+                      os.path.join(RENDER_DIR, "ftorf"), iters)
+    cuda_flags = () if device.type == "cuda" else ("--device", device.type)
+
+    # The ftorf model at full width: the whole test split with video, and
+    # the proxy clouds of every training frame.
+    reset_launches()
+    with recorded(render_sets, "render_frame", device) as frames_ms, \
+            recorded(render_sets, "_write_frame", device) as write_ms, \
+            recorded(render_sets, "_write_gif", device) as gif_ms, \
+            recorded(loop.Trainer, "check_backward_launch", device) as check:
+        t0 = time.perf_counter()
+        base = render_cli(main, "--skip_train", "--proxy_pcd", *cuda_flags)
+        wall = time.perf_counter() - t0
+    launches = read_launches()
+    records = [r[2] for r in frames_ms.results]
+    with open(os.path.join(main, "cfg_args_full.json")) as f:
+        cfg = json.load(f)
+    n_test = n_proxy = cfg["total_num_views"]
+    renders = sum(r["renders"] for r in records)
+    if len(records) != n_test + n_proxy:
+        raise AssertionError(f"{len(records)} frames rendered, want {n_test} "
+                             f"test and {n_proxy} proxy frames")
+    if device.type == "cuda" and not (
+            launches["dense_forward"] + launches["flat_forward"] == renders
+            and launches["dense_backward"] == len(check.ms) == 1
+            and launches["flat_backward"] == 0):
+        raise AssertionError(f"render launches {launches} for {renders} "
+                             f"renders and {len(check.ms)} start-up checks")
+    overflow = [r["tile_overflow"] for r in records]
+    test_dir = os.path.join(base, "test")
+    want = ([f"renders_{iters}/test/{n}" for n in split_files(test_dir, n_test, True)]
+            + [f"input/{ch}/{i:04d}.png" for ch in ("color", "real", "imag", "amp",
+                                                      "depth", "depth_tof")
+               for i in range(n_test)]
+            + [f"input/quad_q{i % 4}/{i:04d}.png" for i in range(n_test)]
+            + [f"iteration_{iters}_video_panel.gif"]
+            + [f"proxy_pcd/frame_{i}/{n}" for i in range(n_proxy) for n in (
+                "input.ply", "cameras.json",
+                f"point_cloud/iteration_{iters}/point_cloud.ply")])
+    missing = missing_files(main, want)
+    if missing:
+        raise AssertionError(f"render tree: {len(missing)} files missing, "
+                             f"{missing[:5]}")
+    log("render", f"ftorf full width (the [trainer] model at iteration "
+        f"{iters}): the CLI rendered {n_test} test frames and {n_proxy} proxy "
+        f"frames ({renders} renders) in {wall:.1f} s, {len(want)} artifacts "
+        f"checked; kernel launches {launches} (dense_backward: the Trainer's "
+        f"start-up check); tile_overflow per frame at the loaded "
+        f"max_per_tile {cfg['max_per_tile']}: {overflow}; deepest tile per frame {[r['tile_max'] for r in records]}; "
+        f"rendered at max_per_tile {sorted({r['max_per_tile'] for r in records})}, "
+        f"flat_stream {sorted({r['flat_stream'] for r in records})}; dropped "
+        f"after growth {max(r['tile_overflow_final'] for r in records)}")
+    render_launches = dict(launches)
+
+    # Two frames' depth maps, bitwise, against eval_frame in this process
+    # on the same state at the capacities the CLI rendered them at; the
+    # dense forward kernel against its plain version at those shapes.
+    tr, _, _ = render_sets.load_trained(main, iters, device)
+    deform = lambda xyz, t, x_emb=None: apply_deform(  # noqa: E731
+        tr.deform, tr.deform_cfg, xyz, t, x_emb)
+    for i in (0, 1):
+        rec = records[i]
+        tr.tile_cap, tr.dup_factor = rec["max_per_tile"], rec["dup_factor"]
+        tr.flat_stream = rec["flat_stream"]
+        with capturing({"forward": (dense, "composite_forward")}) as cap:
+            _, _, out = eval_frame(tr._static_for(iters), tr.model.params,
+                                   deform, tr.model.aux.alive,
+                                   take_frame(tr.scene.test_frames, i),
+                                   device=device)
+        saved = np.load(os.path.join(test_dir, "depth", f"{i:04d}.npy"))
+        if not np.array_equal(out.depth[0].cpu().numpy(), saved):
+            raise AssertionError(f"frame {i}: the CLI's depth differs from "
+                                 "eval_frame's")
+    kernel_note = ("frame 1 rendered flat" if "forward" not in cap.calls
+                   else "the kernel does not run on this device")
+    if "forward" in cap.calls and device.type == "cuda":
+        args = cap.calls["forward"]
+        got, contrib = dense.composite_forward_cuda(*args)
+        ref, ref_contrib = dense.composite_forward_plain(*args)
+        err, _ = compare(got, contrib, ref, ref_contrib, "render frame")
+        ms = time_ms(lambda: dense.composite_forward_cuda(*args), 20)
+        plain_ms = time_ms(lambda: dense.composite_forward_plain(*args), 2)
+        b_ms, b_by, _, _ = bound(*work_of(args[0], args[2], args[3], args[4],
+                                          contrib))
+        T, L, _ = args[0].shape
+        kernel_note = (f"dense_forward at the render's shapes (T={T}, L={L}, "
+                       f"instances {int(args[2].sum())}): {ms:.4f} ms, plain "
+                       f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}), "
+                       f"max_abs_err {err:.3g}")
+    log("render", f"frames 0 and 1: depth .npy bitwise equal to eval_frame in "
+        f"process; {kernel_note}")
+    del tr
+
+    # The card against the CPU: two frames.
+    if device.type == "cuda":
+        cpu = copy_model(os.path.join(trained, "ftorf"),
+                         os.path.join(RENDER_DIR, "cpu"), iters)
+        t0 = time.perf_counter()
+        cpu_base = render_cli(cpu, "--skip_train", "--max_frames", 2,
+                              "--device", "cpu")
+        cpu_s = time.perf_counter() - t0
+        worst_npy, flips, worst_png = 0.0, 0, (0, 0.0, 0)
+        for i in range(2):
+            for ch in ("depth", "depth_tof"):
+                a = np.load(os.path.join(test_dir, ch, f"{i:04d}.npy"))
+                b = np.load(os.path.join(cpu_base, "test", ch, f"{i:04d}.npy"))
+                worst_npy = max(worst_npy, float(np.abs(a - b).max()))
+                flips += check_cutoff_flips(a, b, f"{ch} {i}")
+            for ch in RENDER_CHANNELS + ("quad",):
+                levels, frac, past = png_diff(
+                    read_png(os.path.join(test_dir, ch, f"{i:04d}.png")),
+                    read_png(os.path.join(cpu_base, "test", ch, f"{i:04d}.png")))
+                if past > FLIP_FRAC or frac > PNG_FRAC:
+                    raise AssertionError(
+                        f"{ch} {i}: card and CPU PNGs differ on {frac:.4%} of "
+                        f"pixels, by more than {PNG_LEVELS} level on {past:.4%}")
+                worst_png = max(worst_png, (levels, frac, past))
+        log("render", f"card against CPU (--device cpu --max_frames 2, "
+            f"{cpu_s:.1f} s): .npy max abs diff {worst_npy:.3g}, {flips} "
+            f"pixel(s) past atol {E2E_ATOL} rtol {E2E_RTOL} in "
+            f"{2 * 2 * a.size} map pixels; PNGs differing on at most "
+            f"{worst_png[1]:.4%} of pixels, by at most {worst_png[0]} level(s), "
+            f"by more than {PNG_LEVELS} on {worst_png[2]:.4%}; "
+            f"{cutoff_evidence(main, iters, records[0], device)}")
+
+    # Flat: the same frames with flat_stream set in the model's config.
+    fmodel = copy_model(os.path.join(trained, "ftorf"),
+                        os.path.join(RENDER_DIR, "flat"), iters, flat_stream=True)
+    reset_launches()
+    with recorded(render_sets, "render_frame", device) as fframes, \
+            capturing({"forward": (flat, "composite_forward_flat")}) as fcap:
+        fbase = render_cli(fmodel, "--skip_train", "--skip_video", *cuda_flags)
+    flaunches = read_launches()
+    frenders = sum(r[2]["renders"] for r in fframes.results)
+    if device.type == "cuda" and not (flaunches["flat_forward"] == frenders
+                                      and flaunches["dense_forward"] == 0):
+        raise AssertionError(f"flat render launches {flaunches}")
+    for k, v in flaunches.items():
+        render_launches[k] += v
+    differ = [n for n in split_files(test_dir, n_test, True, gifs=False)
+              if not (np.array_equal(np.load(os.path.join(test_dir, n)),
+                                     np.load(os.path.join(fbase, "test", n)))
+                      if n.endswith(".npy") else np.array_equal(
+                          read_png(os.path.join(test_dir, n)),
+                          read_png(os.path.join(fbase, "test", n))))]
+    if differ:
+        raise AssertionError(f"flat render differs from dense in {differ[:5]}")
+    fnote = ""
+    if device.type == "cuda":
+        args = fcap.calls["forward"]
+        got, contrib = flat.composite_forward_flat_cuda(*args)
+        ref, ref_contrib = flat.composite_forward_flat_plain(*args)
+        err, _ = compare(got, contrib, ref, ref_contrib, "flat render frame")
+        fnote = (f"; flat_forward against its plain version at the render's "
+                 f"first frame (K_pad={args[0].shape[0]}): max_abs_err {err:.3g}")
+    log("render", f"flat copy (flat_stream true): {n_test} frames, every PNG "
+        f"and .npy bitwise equal to the dense render; launches {flaunches}{fnote}")
+
+    # torf: the spiral and freeze-frame spiral paths.
+    torf = copy_model(os.path.join(trained, "torf"),
+                      os.path.join(RENDER_DIR, "torf"), torf_iters)
+    tbase = render_cli(torf, "--skip_train", "--max_frames", 8, *cuda_flags)
+    for split in ("test", "renders_spiral", "freezeframe_spiral"):
+        d = os.path.join(tbase, split)
+        missing = missing_files(d, split_files(d, 8, False))
+        if missing:
+            raise AssertionError(f"torf {split}: missing {missing[:5]}")
+        if split != "test" and np.array_equal(
+                read_png(os.path.join(d, "depth", "0000.png")),
+                read_png(os.path.join(d, "depth", "0001.png"))):
+            raise AssertionError(f"torf {split}: frames 0 and 1 are equal")
+    log("render", f"torf (the [trainer] torf model at iteration {torf_iters}, "
+        f"two cameras): test, renders_spiral and freezeframe_spiral, 8 frames "
+        f"each, the spiral frames differing")
+
+    # Trajectories on the ftorf model.
+    with recorded(render_traj, "track_points", device) as tracks:
+        traj_dir = render_traj.main(["--model_path", main, *cuda_flags])
+    pts = tracks.results[0]
+    if not (np.isfinite(pts).all() and pts.shape[:2] == (n_test, 64)):
+        raise AssertionError(f"tracks: shape {pts.shape}, finite "
+                             f"{np.isfinite(pts).all()}")
+    want = ([f"traj/{i:04d}.png" for i in range(n_test)]
+            + [f"depth_quad/{i:04d}.png" for i in range(n_test)]
+            + ["depth_quad.gif", "traj.gif"])
+    missing = missing_files(traj_dir, want) + missing_files(main, [
+        f"iteration_{iters}_website_panel.gif", f"iteration_{iters}_quad_panel.gif"])
+    empty = [f"{k}_q{q}" for k in ("depth", "quad") for q in range(4)
+             if not os.listdir(os.path.join(traj_dir, f"{k}_q{q}"))]
+    if missing or empty:
+        raise AssertionError(f"trajectories: missing {missing}, empty {empty}")
+    log("render", f"trajectories: 64 tracks over {n_test} frames, finite; "
+        f"traj/, depth_quad/, depth_q0-3/, quad_q0-3/ and both panels written")
+
+    # Debug dumps through the train CLI at the verify recipe's size.
+    dbg = os.path.join(RENDER_DIR, "debug")
+    tr, _, _ = train_cli(device, os.path.join(TRAINER_DIR, "verify.json"), dbg,
+                         "--iterations", 4, "--debug", "true",
+                         "--debug_interval", 2, "--test_iterations", 0)
+    dumps = sorted(d for d in os.listdir(dbg) if d.startswith("tmp_debug_"))
+    counts = {len(os.listdir(os.path.join(dbg, d))) for d in dumps}
+    if len(dumps) != 23 or counts != {3}:
+        raise AssertionError(f"debug dumps: {len(dumps)} directories, files "
+                             f"{counts}")
+    log("render", f"debug dumps: train CLI --debug true, 4 iterations at "
+        f"64x48: {len(dumps)} tmp_debug_* directories of 3 images each")
+    del tr
+
+    n = n_test
+    log("render", f"timing on {card_line() if device.type == 'cuda' else 'cpu'}: "
+        f"ms/frame over the ftorf test split ({n} frames at "
+        f"{cfg['tof_image_width']}x{cfg['tof_image_height']}, host "
+        f"medians): render {statistics.median(frames_ms.ms[:n]):.3f} "
+        f"(render_frame: eval_frame to its one transfer, synchronised; all "
+        f"{[round(v, 3) for v in frames_ms.ms[:n]]}), writing "
+        f"{statistics.median(write_ms.ms[:n]):.3f} (colouring, 9 PNGs and 2 "
+        f".npy; all {[round(v, 3) for v in write_ms.ms[:n]]}); {len(gif_ms.ms)} "
+        f"channel GIFs {sum(gif_ms.ms):.1f} ms in all; proxy frames render "
+        f"{statistics.median(frames_ms.ms[n:]):.3f}")
+    log("render", "ok")
+    return render_launches
 
 
 # ---------------------------------------------------------------- phase 7
@@ -2323,31 +2705,41 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+class capturing:
+    """For a ``with`` block, ``self.calls[name]`` holds the arguments of
+    the first call of each ``name: (module, attr)`` of ``targets``."""
+
+    def __init__(self, targets):
+        self.targets, self.calls = targets, {}
+        self.originals = {name: getattr(module, attr)
+                          for name, (module, attr) in targets.items()}
+
+    def _spy(self, name):
+        import torch
+
+        def call(*args):
+            self.calls.setdefault(name, tuple(
+                a.detach() if torch.is_tensor(a) else a for a in args))
+            return self.originals[name](*args)
+        return call
+
+    def __enter__(self):
+        for name, (module, attr) in self.targets.items():
+            setattr(module, attr, self._spy(name))
+        return self
+
+    def __exit__(self, *exc):
+        for name, (module, attr) in self.targets.items():
+            setattr(module, attr, self.originals[name])
+
+
 def capture_calls(run, it, idx, targets):
     """The arguments of the first call of each ``name: (module, attr)`` of
     ``targets`` in one step of ``run`` (outside any counted window): what
     the training step hands the compositor, the instance gather, etc."""
-    import torch
-
-    calls = {}
-    originals = {name: getattr(module, attr)
-                 for name, (module, attr) in targets.items()}
-
-    def spy(name):
-        def call(*args):
-            calls.setdefault(name, tuple(
-                a.detach() if torch.is_tensor(a) else a for a in args))
-            return originals[name](*args)
-        return call
-
-    try:
-        for name, (module, attr) in targets.items():
-            setattr(module, attr, spy(name))
+    with capturing(targets) as cap:
         run.run_step(it, idx)
-    finally:
-        for name, (module, attr) in targets.items():
-            setattr(module, attr, originals[name])
-    return calls
+    return cap.calls
 
 
 def gather_costs(packed, ids_flat, ids_dense):
@@ -2378,7 +2770,7 @@ def gather_costs(packed, ids_flat, ids_dense):
         }
 
 
-def phase_timing(scenes, runs, flat_runs, worst, launches):
+def phase_timing(scenes, runs, flat_runs, worst, launches, render_launches):
     import torch
 
     from gftorf_tpu_torch.render.kernels import dense, flat
@@ -2503,14 +2895,16 @@ def phase_timing(scenes, runs, flat_runs, worst, launches):
             f"plain {plain_ms:.3f} ms; bound {b_ms:.4f} ms ({nbytes} B -> "
             f"{t_bytes:.4f} ms, {ops} fp32 ops -> {t_ops:.4f} ms); launches in "
             f"the {'train-flat' if name.startswith('flat') else 'train'} phase "
-            f"{launches[name]} over {counted[name.split('_')[0]]}; max_abs_err "
+            f"{launches[name]} over {counted[name.split('_')[0]]}, in the "
+            f"render phase {render_launches[name]}; max_abs_err "
             f"{worst[name]:.3g}; {occ['blocks_per_sm']} block(s) of "
             f"{cfg.tile_pixels} threads per SM, {occ['registers']} registers, "
             f"{occ['spill_bytes']} B local, {occ['shared_bytes']} B shared "
             f"(need_dd={cfg.need_dd}, need_distribution={cfg.need_distribution})")
         kernels.append(dict(
             name=name, route="cuda", source=f"gftorf_tpu_torch/csrc/{name}.cu",
-            replaces=REPLACES[name], launches=launches[name],
+            replaces=REPLACES[name],
+            launches=launches[name] + render_launches[name],
             max_abs_err=worst[name], ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
             bound_by=b_by, library_ms=None))
     torch.cuda.synchronize()
@@ -2732,7 +3126,9 @@ def main():
     phase_deep_tile(device)
     phase_determinism(scenes + flat_scenes, runs + flat_runs)
     phase_trainer(device, drift="--drift" in sys.argv[1:])
-    kernels = phase_timing(scenes, runs, flat_runs, worst, launches)
+    render_launches = phase_render(device)
+    kernels = phase_timing(scenes, runs, flat_runs, worst, launches,
+                           render_launches)
     if "--profile" in sys.argv[1:]:
         phase_profile(scenes + flat_scenes)
         phase_profile_train(runs[0])

@@ -54,7 +54,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--quiet", action="store_true")
     parser.add_argument("--distributed", action="store_true",
                         help="not supported: the multi-device step is not "
-                             "ported yet (ROADMAP, slice 5)")
+                             "ported yet (ROADMAP, slice 6)")
     parser.add_argument("--debug_nans", action="store_true",
                         help="not supported (a jax_debug_nans switch)")
     parser.add_argument("--tensorboard", action="store_true",
@@ -83,17 +83,18 @@ def main(argv=None):
     args = parser.parse_args(argv)
     if args.distributed:
         parser.error("--distributed: the multi-device step is not ported yet "
-                     "(ROADMAP, slice 5)")
+                     "(ROADMAP, slice 6)")
     if args.debug_nans:
         parser.error("--debug_nans is a JAX switch; it has no counterpart here")
     overrides = {k: v for k, v in vars(args).items()
                  if k not in CLI_ONLY and v is not None}
     cfg = Config.from_json(args.config, overrides)
-    if cfg.pipe.debug:
-        parser.error("--debug true: the debug image dumps need utils/viz.py, "
-                     "which is not ported yet (ROADMAP, slice 5)")
 
-    from gftorf_tpu_torch.train.debug import param_histograms, param_series
+    from gftorf_tpu_torch.train.debug import (
+        dump_debug_images,
+        param_histograms,
+        param_series,
+    )
     from gftorf_tpu_torch.train.evaluate import evaluate_and_report
     from gftorf_tpu_torch.train.export import save_scene_artifacts
     from gftorf_tpu_torch.train.loop import Trainer
@@ -149,6 +150,10 @@ def main(argv=None):
             print(f"[{oit}/{iterations}] loss {out['ema_loss']:.5f} "
                   f"pts {out['num_points']} vis {out['visible']} "
                   f"{out['iter_time'] * 1e3:.1f} ms", flush=True)
+        if cfg.pipe.debug and (oit % cfg.tpu.debug_interval == 0 or oit == 1):
+            # label with the trainer's live iteration: the model state is
+            # metrics_lag steps ahead of this resolved record
+            dump_debug_images(trainer, out["idx"], trainer.iteration)
 
     while trainer.iteration < iterations:
         if profile_range and trainer.iteration + 1 == profile_range[0]:

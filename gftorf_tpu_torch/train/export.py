@@ -84,6 +84,75 @@ def save_scene_artifacts(trainer, iteration: int) -> str:
     return out
 
 
+def write_proxy_pcds(trainer, iteration: int, max_frames: int = 0) -> str:
+    """Per-frame proxy point clouds: the GT ToF depth (red) and the
+    rendered depth (blue) back-projected to world space, written as
+    model_path/proxy_pcd/frame_N/input.ply beside cameras.json and a copy
+    of the trained point cloud (the reference's depth-map proxy export,
+    dataset_readers.py:608-713, 1005-1120 and scene/__init__.py:150-166).
+    Frames render through ``render_sets.render_frame`` (one transfer a
+    frame, no tile truncation); the back-projection runs on the host."""
+    import json
+    import shutil
+
+    import torch
+
+    from gftorf_tpu_torch.data.scene import camera_to_json, take_frame
+    from gftorf_tpu_torch.ops.flow import distance_to_points3d
+    from gftorf_tpu_torch.ops.tof import depth_from_tof
+    from gftorf_tpu_torch.render_sets import render_frame
+
+    model_path = trainer.cfg.model.model_path
+    static = trainer._static_for(max(trainer.iteration, 1))
+    frames = trainer.scene.train_frames
+    cams = trainer.scene.data.train_cameras
+    json_cams = [camera_to_json(i, c) for i, c in enumerate(cams)]
+    trained_ply = os.path.join(model_path, "point_cloud",
+                               f"iteration_{iteration}", "point_cloud.ply")
+
+    count = len(cams) if not max_frames else min(len(cams), max_frames)
+    # The split's GT depth, intrinsics and view matrices in one read each.
+    gt_depth = depth_from_tof(
+        torch.movedim(frames.gt_phasor[:count], 1, -1),
+        frames.cam_tof.depth_range[:count, None, None],
+        frames.phase_offset[:count, None, None]).cpu()
+    ks = frames.intrinsics_tof[:count].cpu().tolist()
+    views = frames.cam_tof.viewmatrix[:count].cpu()
+    root = os.path.join(model_path, "proxy_pcd")
+    for fid in range(count):
+        frame = take_frame(frames, fid)._replace(
+            frame_id=torch.tensor(cams[fid].frame_id, dtype=torch.int32))
+        static, out, _ = render_frame(trainer, static, frame)
+        (fx, _, cx), (_, fy, cy), _ = ks[fid]
+        xyz = torch.cat([
+            distance_to_points3d(d[None], views[fid], fx, fy, cx, cy)
+            .reshape(3, -1).T
+            for d in (gt_depth[fid], torch.from_numpy(out["depth"]))]).numpy()
+        n_half = xyz.shape[0] // 2
+        colors = np.zeros((2 * n_half, 3), np.uint8)
+        colors[:n_half, 0] = 255  # input depth: red
+        colors[n_half:, 2] = 255  # rendered depth: blue
+
+        frame_dir = os.path.join(root, f"frame_{fid}")
+        pc_dir = os.path.join(frame_dir, "point_cloud", f"iteration_{iteration}")
+        os.makedirs(pc_dir, exist_ok=True)
+        props = {}
+        props["x"], props["y"], props["z"] = xyz.T.astype(np.float32)
+        for name in ("nx", "ny", "nz"):
+            props[name] = np.zeros(2 * n_half, np.float32)
+        props["red"], props["green"], props["blue"] = colors.T
+        props["phase"] = np.zeros(2 * n_half, np.float32)
+        props["amplitude"] = np.zeros(2 * n_half, np.float32)
+        for name in ("seg_red", "seg_green", "seg_blue"):
+            props[name] = np.zeros(2 * n_half, np.uint8)
+        write_ply(os.path.join(frame_dir, "input.ply"), props)
+        with open(os.path.join(frame_dir, "cameras.json"), "w") as f:
+            json.dump(json_cams, f, indent=4)
+        if os.path.exists(trained_ply):
+            shutil.copy(trained_ply, os.path.join(pc_dir, "point_cloud.ply"))
+    return root
+
+
 def load_gaussians_from_ply(path: str, sh_degree: int = 3, device=None):
     """Load a point_cloud_full.ply into GaussianParams, like
     GaussianModel.load_ply (gaussian_model.py:378-454). ``device=None``

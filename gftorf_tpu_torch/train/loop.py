@@ -175,7 +175,7 @@ class Trainer:
         if max(1, cfg.tpu.mesh_data) * max(1, cfg.tpu.mesh_shards) > 1:
             raise NotImplementedError(
                 "mesh_data / mesh_shards > 1: the multi-device step is not "
-                "ported yet (ROADMAP, slice 5)")
+                "ported yet (ROADMAP, slice 6)")
         self.mesh_shape = None
 
         if self.scene.scene_type == "torf":
@@ -461,44 +461,14 @@ class Trainer:
         replay = [rec] + self._pending
         self._pending = []
         while True:
-            grew = []
-            if metrics["tile_overflow"] > 0:
-                if self.tile_cap < self.tile_cap_limit:
-                    self.tile_cap = min(
-                        max(self._tile_cap_need(int(metrics["tile_max"])),
-                            self.tile_cap + 128),
-                        self.tile_cap_limit)
-                    grew.append(f"max_per_tile={self.tile_cap} (dropped "
-                                f"{int(metrics['tile_overflow'])} instances)")
-                elif not self.flat_stream and self._flat_fallback_ok:
-                    # Past the dense ceiling the exact flat stream renders
-                    # the scene: tile depth is not a kernel dimension there.
-                    self.flat_stream = True
-                    self._flat_auto = True
-                    grew.append(
-                        f"flat_stream=True (deepest tile "
-                        f"{int(metrics['tile_max'])} exceeds the dense "
-                        f"ceiling {self.tile_cap_limit}; exact stream "
-                        f"fallback)")
-            if (metrics["dup_overflow"] > 0
-                    and self.dup_factor < self.dup_factor_limit):
-                self.dup_factor = min(
-                    max(self._dup_factor_need(int(metrics["rendered_max"])),
-                        self.dup_factor + 1),
-                    self.dup_factor_limit)
-                grew.append(f"dup_factor={self.dup_factor}")
+            grew = self.grow_capacities(metrics)
             if not grew:
                 break
             print(f"[iter {rec['it']}] capacity overflow -> "
                   f"{', '.join(grew)}, replaying", flush=True)
             self.model, self.deform, self.deform_adam = rec["prev"]
-            caps = dict(max_per_tile=self.tile_cap, dup_factor=self.dup_factor,
-                        flat_stream=self.flat_stream)
             for r in replay:
-                st = r["static"]
-                self._dispatch(r["it"], r["idx"], dataclasses.replace(
-                    st, config_color=dataclasses.replace(st.config_color, **caps),
-                    config_tof=dataclasses.replace(st.config_tof, **caps)))
+                self._dispatch(r["it"], r["idx"], self.with_capacities(r["static"]))
             rec = self._pending.pop(0)
             replay = [rec] + self._pending
             self._pending = []
@@ -511,6 +481,49 @@ class Trainer:
         if metrics["dup_overflow"] > 0:
             self._warn_dup_limit(rec["it"])
         return metrics
+
+    def grow_capacities(self, metrics: dict) -> list:
+        """Grow whichever capacity overflowed in ``metrics`` (a step's or a
+        render's ``tile_overflow``, ``tile_max``, ``dup_overflow`` and
+        ``rendered_max``) to 1.35x the measured need, or take the flat
+        stream past the dense ceiling where it is available; returns what
+        grew (empty at every ceiling)."""
+        grew = []
+        if metrics["tile_overflow"] > 0:
+            if self.tile_cap < self.tile_cap_limit:
+                self.tile_cap = min(
+                    max(self._tile_cap_need(int(metrics["tile_max"])),
+                        self.tile_cap + 128),
+                    self.tile_cap_limit)
+                grew.append(f"max_per_tile={self.tile_cap} (dropped "
+                            f"{int(metrics['tile_overflow'])} instances)")
+            elif not self.flat_stream and self._flat_fallback_ok:
+                # Past the dense ceiling the exact flat stream renders
+                # the scene: tile depth is not a kernel dimension there.
+                self.flat_stream = True
+                self._flat_auto = True
+                grew.append(
+                    f"flat_stream=True (deepest tile "
+                    f"{int(metrics['tile_max'])} exceeds the dense "
+                    f"ceiling {self.tile_cap_limit}; exact stream "
+                    f"fallback)")
+        if (metrics["dup_overflow"] > 0
+                and self.dup_factor < self.dup_factor_limit):
+            self.dup_factor = min(
+                max(self._dup_factor_need(int(metrics["rendered_max"])),
+                    self.dup_factor + 1),
+                self.dup_factor_limit)
+            grew.append(f"dup_factor={self.dup_factor}")
+        return grew
+
+    def with_capacities(self, static: StepStatic) -> StepStatic:
+        """``static`` with the current max_per_tile, dup_factor and
+        flat_stream on both RasterConfigs."""
+        caps = dict(max_per_tile=self.tile_cap, dup_factor=self.dup_factor,
+                    flat_stream=self.flat_stream)
+        return dataclasses.replace(
+            static, config_color=dataclasses.replace(static.config_color, **caps),
+            config_tof=dataclasses.replace(static.config_tof, **caps))
 
     def _warn_tile_limit(self, it: int, dropped: float) -> None:
         """One-time warning when the tile cap ceiling truncates renders."""

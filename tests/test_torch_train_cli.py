@@ -149,14 +149,16 @@ def test_cli_needs_cuda_without_device(tmp_path, runs):
         main(["--config", cfg, "--model_path", str(tmp_path / "m")])
 
 
-@pytest.mark.parametrize("flag", [["--debug", "true"], ["--distributed"],
-                                  ["--debug_nans"]])
+@pytest.mark.parametrize("flag", [["--debug", "true", "--distributed"],
+                                  ["--distributed"], ["--debug_nans"]])
 def test_cli_rejects_unported_switches(tmp_path, runs, flag, capsys):
+    """--distributed and --debug_nans are refused, with or without --debug
+    true (which the CLI takes: tests/test_torch_render_cli.py)."""
     cfg = os.path.join(str(runs["root"]), "cfg.json")
     with pytest.raises(SystemExit):
         main(["--config", cfg, "--model_path", str(tmp_path / "m"),
               "--device", "cpu"] + flag)
-    if flag[0] == "--debug":
+    if "--distributed" in flag:
         assert "ROADMAP" in capsys.readouterr().err
 
 
