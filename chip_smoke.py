@@ -141,6 +141,34 @@ Phases, each printing lines tagged with its name and raising on failure:
             Prints ms/frame of the render CLI (render and writing, host
             medians) beside the card.
 
+10. sharded  the multi-device training step (``parallel/``), its ranks
+            spawned on this one card over gloo (NCCL takes one rank per
+            card; gloo stages the collectives through the host), the kernels
+            built once before the spawn: from the [train] phase's full-width
+            states (configs/ftorf.json and torf.json, 100,000 Gaussians in a
+            capacity of 200,000) with constant backgrounds, three steps under
+            the meshes (1,2), (1,4) and (2,2) dense and (1,2) flat for ftorf
+            and (1,2) dense for torf, one camera per data slice. After every
+            step each rank's state is bitwise equal (SHA-1 of every leaf);
+            the first step of a shard-only mesh matches the single-device
+            step on the card (compare_steps); the flat mesh equals the dense
+            one bitwise; reruns of (1,2) and (2,2) are bitwise equal; the
+            last band's rank holds kernels 1-4 against their plain versions
+            on its own band's inputs (origins from its first tile row); each
+            rank's launches equal its renders; (2,2) at the [train-vs-cpu]
+            size against (2,2) on the CPU (gloo, plain kernels) at that
+            phase's tolerances. Prints ms/step per mesh and rank (ranks
+            sharing one card over gloo) and each rank's peak memory. Then
+            ``python -m torch.distributed.run --nproc_per_node 2 -m
+            gftorf_tpu_torch.train --distributed`` on configs/ftorf.json with
+            mesh_shards 2 on the [trainer] phase's scene, 30 iterations
+            (densify at 20 and 30, max_per_tile 128 and dup_factor 2 so both
+            grow and replay at iteration 1): rank 0's artifact tree complete,
+            the ranks' final digests equal (the CLI's "ranks agree" line),
+            mae_d_tof falling between the evaluations at 1 and 30. Outputs
+            under build/sharded/. The sharded launches are added to the
+            ``kernels`` line.
+
 ``python3 chip_smoke.py --profile`` adds a breakdown of a served frame by
 stage and the device's share of a training step under torch.profiler,
 dense and flat, and traces under build/profile/; without arguments the
@@ -1536,20 +1564,24 @@ def phase_train_flat(runs):
 # ---------------------------------------------------------------- phase 5
 
 
-def compare_steps(got, ref, lrs, deform_lr, what, hidden_frac=MU_ATOL_FRAC):
+def compare_steps(got, ref, lrs, deform_lr, what, hidden_frac=MU_ATOL_FRAC,
+                  skip=()):
     """One step's outputs against a reference run's, at the CPU parity
     tests' tolerances (tests/torch_port_util.py): metrics at rtol 1e-5
     (the integer counts of binning up to 0.1 %, as phase 3 holds integer
-    outputs), Adam mu and nu of every leaf, the densify stats and the new
-    parameters (atol 2 lr). ``hidden_frac`` replaces the mu atol fraction
-    (and scales nu's) for the deform MLP's hidden layers. Returns the
-    worst mu error over max|leaf| of the Gaussians and of the MLP."""
+    outputs; the names in ``skip`` not at all), Adam mu and nu of every
+    leaf, the densify stats and the new parameters (atol 2 lr).
+    ``hidden_frac`` replaces the mu atol fraction (and scales nu's) for the
+    deform MLP's hidden layers. Returns the worst mu error over max|leaf|
+    of the Gaussians and of the MLP."""
     import torch
 
     from gftorf_tpu_torch.train.step import METRIC_NAMES
 
     (gm, gd, gda, gp), (rm, rd, rda, rp) = got, ref
     for i, name in enumerate(METRIC_NAMES):
+        if name in skip:
+            continue
         a, b = float(gp[i]), float(rp[i])
         tol = (METRIC_RTOL if name in ("loss", "l1_color", "l1_p", "flow_l2")
                else 1e-3) * abs(b)
@@ -2599,6 +2631,414 @@ def phase_render(device, iters=260, torf_iters=30):
     return render_launches
 
 
+# ---------------------------------------------------------------- sharded
+
+
+SHARD_DIR = os.path.join(ROOT, "build", "sharded")
+SHARD_STEPS, SHARD_IT0 = 3, 2121
+SHARD_TIMEOUT_S = 600
+
+
+def _free_port():
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def state_digest(tree):
+    """SHA-1 of every tensor of a (nested) tree, in order: two ranks' or
+    two runs' states are bitwise equal when their digests are."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha1()
+    for name, t in tree_items(tree):
+        h.update(name.encode())
+        h.update(t.detach().cpu().contiguous().view(-1).view(torch.uint8)
+                 .numpy().tobytes())
+    return h.hexdigest()
+
+
+def _sharded_rank(rank, world, port, device, in_path, out_dir):
+    """One rank of the ``[sharded]`` phase (a spawned process): joins the
+    gloo group, runs every case of the payload and saves what the parent
+    checks. Its tracebacks go to ``rank<r>.err``."""
+    import traceback
+
+    import torch
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+    torch.set_num_threads(2)
+    import torch.distributed as dist
+
+    from gftorf_tpu_torch.parallel.mesh import init_distributed
+
+    try:
+        dev = init_distributed("gloo", device, timeout_s=SHARD_TIMEOUT_S)
+        payload = torch.load(in_path, weights_only=False)
+        results = [_sharded_case(case, payload, dev) for case in payload["cases"]]
+        torch.save(results, os.path.join(out_dir, f"rank{rank}.pt"))
+    except BaseException:
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise SystemExit(1)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _sharded_case(case, payload, dev):
+    """``SHARD_STEPS`` train_steps of one mesh from one state: per step the
+    state digest, ms and metrics; the launch counts of the steps; rank 0
+    against the single-device step (shard-only meshes) and the last shard
+    rank's kernels against their plain versions on its band's inputs."""
+    import torch
+
+    from gftorf_tpu_torch.parallel.mesh import cached_mesh
+    from gftorf_tpu_torch.render.kernels import dense, flat
+    from gftorf_tpu_torch.train.step import (
+        METRIC_NAMES, _deform_lr_at, _gaussian_lrs_at, train_step)
+
+    mesh = cached_mesh(*case["mesh"])
+    move = lambda t: t.to(dev)  # noqa: E731
+    state = tree_map(move, payload["states"][case["key"]])
+    frames = tree_map(move, payload["frames"][case["key"]])
+    res = {"label": case["label"], "rank": mesh.rank}
+    cuda = dev.type == "cuda"
+    if case["single"] and mesh.rank == 0:
+        static, idx, it = case["steps"][0]
+        ref = train_step(dataclasses.replace(static, mesh_shape=None), *state,
+                         frames, idx, it)
+    static_flat = case["steps"][0][0].config_tof.flat_stream
+    mod, names = ((flat, ("composite_forward_flat", "composite_backward_flat"))
+                  if static_flat else (dense, ("composite_forward",
+                                               "composite_backward")))
+    last = mesh.shard_index == mesh.shard - 1 and case["capture"]
+    targets = {n: (mod, n) for n in names} if last else {}
+    if cuda:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    digests, ms, metrics = [], [], []
+    with capturing(targets) as cap:
+        for k, (static, idx, it) in enumerate(case["steps"]):
+            if cuda:
+                torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            out = train_step(static, *state, frames, idx, it)
+            if cuda:
+                torch.cuda.synchronize(dev)
+            ms.append(1e3 * (time.perf_counter() - t0))
+            state = out[:3]
+            m = dict(zip(METRIC_NAMES, out[3].tolist()))
+            if m["tile_overflow"] or m["dup_overflow"]:
+                raise AssertionError(f"{case['label']}: step {k} overflowed: {m}")
+            metrics.append(m)
+            digests.append(state_digest(out))
+            if k == 0 and case["single"] and mesh.rank == 0:
+                lrs, d_lr = _gaussian_lrs_at(static, it), _deform_lr_at(static, it)
+                # A mesh reports its deepest band's count times the shards.
+                res["vs_single"] = compare_steps(
+                    out, ref, lrs, d_lr, f"{case['label']} vs one device",
+                    skip=("num_rendered", "rendered_max"))
+                res["single_loss"] = float(ref[3][0])
+            if k == 0 and case.get("save_first") and mesh.rank == 0:
+                res["first"] = tree_map(lambda t: t.cpu(), out)
+    res.update(digests=digests, ms=ms, metrics=metrics,
+               launches=read_launches(),
+               peak_mb=(torch.cuda.max_memory_allocated(dev) / 2**20
+                        if cuda else None))
+    if last and cuda:
+        res["kernels"] = _band_kernel_checks(cap.calls, names, static_flat)
+    return res
+
+
+def _band_kernel_checks(calls, names, is_flat):
+    """The kernel pair of a band's first render against its plain versions,
+    on the band's own inputs (its tile origins start at its first row)."""
+    from gftorf_tpu_torch.render.kernels import dense, flat
+
+    fwd, bwd = calls[names[0]], calls[names[1]]
+    origins = fwd[-2] if not is_flat else fwd[4]
+    row0 = int(origins[:, 1].min())
+    if is_flat:
+        out, contrib = flat.composite_forward_flat_cuda(*fwd)
+        ref_out, ref_contrib = flat.composite_forward_flat_plain(*fwd)
+        dfeat = flat.composite_backward_flat_cuda(*bwd)
+        ref_dfeat = flat.composite_backward_flat_plain(*bwd)
+        pair = ("flat_forward", "flat_backward")
+    else:
+        out, contrib = dense.composite_forward_cuda(*fwd)
+        ref_out, ref_contrib = dense.composite_forward_plain(*fwd)
+        dfeat = dense.composite_backward_cuda(*bwd)
+        ref_dfeat = dense.composite_backward_plain(*bwd)
+        pair = ("dense_forward", "dense_backward")
+    what = f"{pair[0]} on a band from pixel row {row0}"
+    err_f, lanes = compare(out, contrib, ref_out, ref_contrib, what)
+    err_b, _ = compare_bwd(dfeat, ref_dfeat, lanes, what)
+    return {"row0": row0, "tiles": int(fwd[1].shape[0]), pair[0]: err_f,
+            pair[1]: err_b}
+
+
+def run_mesh(world, device, payload, tag):
+    """Run the payload's cases on ``world`` spawned ranks on ``device``;
+    returns each rank's results. A failed rank, or a run past
+    ``SHARD_TIMEOUT_S``, kills every rank and raises with the tracebacks."""
+    import multiprocessing as mp
+    import shutil
+
+    import torch
+
+    out_dir = os.path.join(SHARD_DIR, tag)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    in_path = os.path.join(out_dir, "payload.pt")
+    torch.save(payload, in_path)
+    ctx = mp.get_context("spawn")
+    port = _free_port()
+    procs = [ctx.Process(target=_sharded_rank,
+                         args=(r, world, port, device, in_path, out_dir))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + SHARD_TIMEOUT_S
+    try:
+        while any(p.is_alive() for p in procs):
+            if (any(p.exitcode not in (None, 0) for p in procs)
+                    or time.monotonic() > deadline):
+                break
+            time.sleep(0.1)
+        failed = [r for r, p in enumerate(procs) if p.exitcode not in (None, 0)]
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    if failed or hung:
+        errs = ""
+        for r in range(world):
+            path = os.path.join(out_dir, f"rank{r}.err")
+            if os.path.exists(path):
+                with open(path) as f:
+                    errs += f"\nrank {r}:\n{f.read()}"
+        raise AssertionError(f"[sharded] {tag}: ranks {failed} failed, ranks "
+                             f"{hung} killed (still running then; timeout "
+                             f"{SHARD_TIMEOUT_S} s){errs}")
+    results = [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                          weights_only=False) for r in range(world)]
+    os.remove(in_path)
+    return results
+
+
+def mesh_case(run, key, mesh, label, flat=False, single=False, capture=False,
+              save_first=False, n_steps=SHARD_STEPS):
+    """A case of the ``[sharded]`` payload: ``n_steps`` steps of ``run``
+    under ``mesh``, with constant backgrounds (every device draws none),
+    one camera per data slice; the statics the Trainer builds (flow gated
+    at run time when data > 1)."""
+    import copy
+
+    r = copy.copy(run)
+    r.flat, r.random_bg = flat, False
+    n = len(r.frame_ids)
+    steps = []
+    for k in range(n_steps):
+        it = SHARD_IT0 + k
+        if mesh[0] == 1:
+            idx = k % n
+            static = r.static_for(it, r.frame_ids[idx] % 4 == 0)
+        else:
+            idx = [(k + d) % n for d in range(mesh[0])]
+            static = r.static_for(it, None)
+        steps.append((dataclasses.replace(static, mesh_shape=mesh), idx, it))
+    return dict(key=key, mesh=mesh, label=label, steps=steps, single=single,
+                capture=capture, save_first=save_first)
+
+
+def _ranks_equal(results, i, label):
+    """Every rank's per-step digests of case ``i`` equal rank 0's."""
+    first = results[0][i]["digests"]
+    for r, res in enumerate(results[1:], 1):
+        if res[i]["digests"] != first:
+            raise AssertionError(f"{label}: rank {r}'s state differs from rank "
+                                 f"0's after steps {res[i]['digests']} vs {first}")
+    return first
+
+
+def phase_sharded(device, runs):
+    """The multi-device step on one card (module docstring, 10)."""
+    import torch
+
+    ftorf, torf = runs
+    small = TrainRun("ftorf", 4000, 10_000, device, random_bg=False,
+                     dxyz_scale=1000.0)
+    while True:  # grow the buffers until the step does not overflow
+        _, m = small.run_step(2101, 0)
+        if m["tile_overflow"] == 0 and m["dup_overflow"] == 0:
+            break
+        small.grow(m["tile_max"])
+    runs = {"ftorf": ftorf, "torf": torf, "small": small}
+
+    def payload(cases):
+        keys = {c["key"] for c in cases}
+        return {"cases": cases,
+                "states": {k: tree_map(lambda t: t.cpu(), (
+                    runs[k].model, runs[k].deform, runs[k].deform_adam))
+                    for k in keys},
+                "frames": {k: tree_map(lambda t: t.cpu(), runs[k].frames)
+                           for k in keys}}
+
+    dense2 = [mesh_case(ftorf, "ftorf", (1, 2), "ftorf (1,2) dense", single=True,
+                        capture=True),
+              mesh_case(ftorf, "ftorf", (1, 2), "ftorf (1,2) flat", flat=True,
+                        capture=True),
+              mesh_case(torf, "torf", (1, 2), "torf (1,2) dense", single=True),
+              mesh_case(ftorf, "ftorf", (1, 2), "ftorf (1,2) dense rerun")]
+    four = [mesh_case(ftorf, "ftorf", (1, 4), "ftorf (1,4) dense", single=True,
+                      capture=True),
+            mesh_case(ftorf, "ftorf", (2, 2), "ftorf (2,2) dense", capture=True),
+            mesh_case(ftorf, "ftorf", (2, 2), "ftorf (2,2) dense rerun")]
+    # (2,2) at the [train-vs-cpu] size, one step on the card and on the CPU.
+    four.append(mesh_case(small, "small", (2, 2), "ftorf 4,000 (2,2) card",
+                          save_first=True, n_steps=1))
+    card = card_line() if device.type == "cuda" else "cpu"
+    rank_dev = f"{device.type}:0" if device.type == "cuda" else "cpu"
+    t0 = time.perf_counter()
+    res2 = run_mesh(2, rank_dev, payload(dense2), "world2")
+    res4 = run_mesh(4, rank_dev, payload(four), "world4")
+    res_cpu = run_mesh(4, "cpu", payload(
+        [dict(four[-1], label="ftorf 4,000 (2,2) cpu")]), "world4_cpu")
+    wall = time.perf_counter() - t0
+
+    digests = {}
+    launches = dict.fromkeys(KERNELS, 0)
+    for results in (res2, res4):
+        for i, case in enumerate(results[0]):
+            label = case["label"]
+            digests[label] = _ranks_equal(results, i, label)
+            per_rank = [r[i]["launches"] for r in results]
+            renders = len(case["ms"]) * (1 if "ftorf" in label else 2)
+            kind = "flat" if "flat" in label else "dense"
+            other = "dense" if kind == "flat" else "flat"
+            for r, n in enumerate(per_rank):
+                if not (n[f"{kind}_forward"] == n[f"{kind}_backward"] == renders
+                        and n[f"{other}_forward"] == n[f"{other}_backward"] == 0):
+                    raise AssertionError(f"{label}: rank {r} launched {n}, want "
+                                         f"{renders} {kind} pairs")
+                for k in KERNELS:
+                    launches[k] += n[k]
+            ms = [statistics.median(r[i]["ms"][1:] or r[i]["ms"]) for r in results]
+            losses = [m["loss"] for m in case["metrics"]]
+            vs = case.get("vs_single")
+            log("sharded", f"{label}: {len(case['ms'])} steps, each rank's state "
+                f"bitwise equal after every step; losses {losses}"
+                + (f" (one device {case['single_loss']:.7g}; worst mu error / "
+                   f"max|leaf| {vs['gaussians']:.3g} Gaussians, {vs['mlp']:.3g} "
+                   "MLP)" if vs else "")
+                + f"; median ms/step by rank {[round(v, 3) for v in ms]} "
+                f"(ranks sharing one card over gloo, {card}); peak MiB by rank "
+                f"{[r[i]['peak_mb'] and round(r[i]['peak_mb'], 1) for r in results]}; launches by "
+                f"rank {per_rank}")
+            for r in results:
+                if "kernels" in r[i]:
+                    log("sharded", f"{label}: rank {r[i]['rank']}'s band "
+                        f"(tile rows from pixel row {r[i]['kernels']['row0']}, "
+                        f"{r[i]['kernels']['tiles']} tiles), kernels against "
+                        f"their plain versions: max abs err " + ", ".join(
+                            f"{k} {v:.3g}" for k, v in r[i]["kernels"].items()
+                            if k in KERNELS))
+    if digests["ftorf (1,2) flat"] != digests["ftorf (1,2) dense"]:
+        raise AssertionError("flat (1,2) differs from dense (1,2)")
+    for label in ("ftorf (1,2) dense", "ftorf (2,2) dense"):
+        if digests[f"{label} rerun"] != digests[label]:
+            raise AssertionError(f"{label}: a rerun differs")
+    _ranks_equal(res_cpu, 0, "ftorf 4,000 (2,2) cpu")
+    got, ref = res4[0][-1]["first"], res_cpu[0][0]["first"]
+    static = four[-1]["steps"][0][0]
+    from gftorf_tpu_torch.train.step import _deform_lr_at, _gaussian_lrs_at
+
+    c = compare_steps(tree_map(lambda t: t.to(device), got),
+                      tree_map(lambda t: t.to(device), ref),
+                      _gaussian_lrs_at(static, SHARD_IT0),
+                      _deform_lr_at(static, SHARD_IT0), "(2,2) card vs cpu",
+                      hidden_frac=HIDDEN_CARD_CPU_FRAC)
+    log("sharded", f"ftorf 4,000 Gaussians (2,2) on the card against (2,2) on "
+        f"the CPU (gloo, plain kernels), first step: worst mu error / "
+        f"max|leaf| {c['gaussians']:.3g} (Gaussians), {c['mlp']:.3g} (MLP)")
+    log("sharded", f"flat (1,2) equals dense (1,2) bitwise after every step; "
+        f"reruns of (1,2) and (2,2) bitwise equal; {wall:.1f} s for the "
+        f"meshes; launches summed over ranks {launches}")
+    return launches
+
+
+def phase_sharded_trainer(device, iters=30):
+    """``python -m torch.distributed.run --nproc_per_node 2 -m
+    gftorf_tpu_torch.train --distributed`` on configs/ftorf.json with
+    ``mesh_shards`` 2, both ranks on this card over gloo, on the [trainer]
+    phase's dataset: a densify event, a grow-and-replay of both
+    capacities at iteration 1, rank 0's tree, the ranks' final digests
+    equal, and ``mae_d_tof`` falling between the evaluations."""
+    out = os.path.join(SHARD_DIR, "trainer")
+    import shutil
+
+    shutil.rmtree(out, ignore_errors=True)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "2",
+           "--master_addr", "127.0.0.1", "--master_port", str(_free_port()),
+           "-m", "gftorf_tpu_torch.train", "--distributed", "--device",
+           "cuda:0" if device.type == "cuda" else "cpu", "--dist_backend", "gloo",
+           "--config", os.path.join(ROOT, "configs", "ftorf.json"),
+           "--source_path", os.path.join(TRAINER_DIR, "ftorf"),
+           "--model_path", out, "--total_num_views", "16", "--mesh_shards", "2",
+           "--iterations", str(iters), "--warm_up", "10",
+           "--densify_from_iter", "10", "--densification_interval", "10",
+           "--opacity_reset_interval", "1000",
+           "--max_per_tile", "128", "--max_per_tile_floor", "128",
+           "--dup_factor", "2", "--test_iterations", "1", str(iters),
+           "--save_iterations", str(iters), "--checkpoint_iterations", str(iters)]
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="2")
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=SHARD_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"[sharded] the distributed Trainer failed "
+                             f"(exit {proc.returncode}):\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-6000:]}")
+    lines = proc.stdout.splitlines()
+    grew = [ln for ln in lines if "capacity overflow" in ln]
+    agree = [ln for ln in lines if ln.startswith("ranks agree")]
+    if not grew or len(agree) != 1:
+        raise AssertionError(f"[sharded] no grow-and-replay ({grew}) or no "
+                             f"agreement line ({agree}):\n{proc.stdout[-3000:]}")
+    n_files = check_artifacts(out, iters)
+    with open(os.path.join(out, "train_log.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    mae = [r["eval"]["test"]["mae_d_tof"] for r in recs if "eval" in r]
+    start = [r["num_points"] for r in recs if "num_points" in r][0]
+    if len(mae) != 2 or not mae[1] < mae[0]:
+        raise AssertionError(f"[sharded] mae_d_tof did not fall: {mae}")
+    from gftorf_tpu_torch.utils.checkpoint import load_pytree
+
+    leaves, _ = load_pytree(os.path.join(out, f"chkpnt{iters}.npz"))
+    # The densify events change the live count of iteration 1.
+    alive = [x for x in leaves if getattr(x, "dtype", None) == bool]
+    pts = int(alive[0].sum())
+    if len(alive) != 1 or pts == start:
+        raise AssertionError(f"[sharded] the densify events changed nothing: "
+                             f"{pts} points alive")
+    log("sharded", f"distributed Trainer (2 ranks sharing one card over gloo, "
+        f"configs/ftorf.json, mesh_shards 2, {iters} iterations, densify at "
+        f"20 and 30): {wall:.1f} s wall; {grew[0].strip()}; {agree[0]}; "
+        f"{n_files} artifacts in rank 0's tree; mae_d_tof {mae[0]:.5f} -> "
+        f"{mae[1]:.5f}; {pts} points alive at the end ({start} at iteration 1)")
+
+
 # ---------------------------------------------------------------- phase 7
 
 
@@ -2770,7 +3210,8 @@ def gather_costs(packed, ids_flat, ids_dense):
         }
 
 
-def phase_timing(scenes, runs, flat_runs, worst, launches, render_launches):
+def phase_timing(scenes, runs, flat_runs, worst, launches, render_launches,
+                 sharded_launches):
     import torch
 
     from gftorf_tpu_torch.render.kernels import dense, flat
@@ -2793,7 +3234,8 @@ def phase_timing(scenes, runs, flat_runs, worst, launches, render_launches):
 
     # The ftorf training shapes: the blocks of one step on an integration
     # frame (flow on), as the step hands them to the kernels, dense and flat.
-    from gftorf_tpu_torch.render import rasterize
+    # The module (the package re-exports the function under its name).
+    rasterize = sys.modules["gftorf_tpu_torch.render.rasterize"]
 
     calls = capture_calls(runs[0], 2122, 0, {
         "forward": (dense, "composite_forward"),
@@ -2896,7 +3338,8 @@ def phase_timing(scenes, runs, flat_runs, worst, launches, render_launches):
             f"{t_bytes:.4f} ms, {ops} fp32 ops -> {t_ops:.4f} ms); launches in "
             f"the {'train-flat' if name.startswith('flat') else 'train'} phase "
             f"{launches[name]} over {counted[name.split('_')[0]]}, in the "
-            f"render phase {render_launches[name]}; max_abs_err "
+            f"render phase {render_launches[name]}, in the sharded phase "
+            f"{sharded_launches[name]} (summed over ranks); max_abs_err "
             f"{worst[name]:.3g}; {occ['blocks_per_sm']} block(s) of "
             f"{cfg.tile_pixels} threads per SM, {occ['registers']} registers, "
             f"{occ['spill_bytes']} B local, {occ['shared_bytes']} B shared "
@@ -2904,12 +3347,51 @@ def phase_timing(scenes, runs, flat_runs, worst, launches, render_launches):
         kernels.append(dict(
             name=name, route="cuda", source=f"gftorf_tpu_torch/csrc/{name}.cu",
             replaces=REPLACES[name],
-            launches=launches[name] + render_launches[name],
+            launches=(launches[name] + render_launches[name]
+                      + sharded_launches[name]),
             max_abs_err=worst[name], ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
             bound_by=b_by, library_ms=None))
+    launch_check_timing(runs[0])
     torch.cuda.synchronize()
     log("timing", "ok")
     return kernels
+
+
+def launch_check_timing(run):
+    """Kernel 2 at the Trainer's start-up launch check
+    (``Trainer.check_backward_launch``, the counterpart of the TPU's
+    compile-only VMEM check): one 16x32 tile of ``MAX_PER_TILE_LIMIT``
+    all-zero rows, flow on, the ftorf step's dd gate; its time, its plain
+    version's and the bound of its work (every pixel evaluates every row:
+    no row's opacity reaches the alpha cutoff)."""
+    import torch
+
+    from gftorf_tpu_torch.render.kernels import dense
+    from gftorf_tpu_torch.render.settings import RasterConfig
+
+    need_dd = run.static_for(2101, True).config_tof.need_dd
+    cfg = RasterConfig(height=240, width=320, tile_h=16, tile_w=32,
+                       max_per_tile=MAX_PER_TILE_LIMIT, need_dd=need_dd,
+                       need_distribution=False)
+    L, pix, dev = cfg.max_per_tile, cfg.tile_pixels, run.device
+    zeros = lambda *s: torch.zeros(s, device=dev)  # noqa: E731
+    args = (zeros(1, L, dense.FEAT_COLS), zeros(1, pix, dense.BG_COLS),
+            zeros(1, pix, dense.OUT_COLS), zeros(1, pix, dense.OUT_COLS),
+            torch.full((1,), L, dtype=torch.int32, device=dev),
+            torch.zeros((1, 2), dtype=torch.int32, device=dev), cfg, True)
+    got = dense.composite_backward_cuda(*args)
+    ref = dense.composite_backward_plain(*args)
+    err, _ = compare_bwd(got, ref, 0, "launch check")
+    ms = time_ms(lambda: dense.composite_backward_cuda(*args), 10)
+    plain_ms = time_ms(lambda: dense.composite_backward_plain(*args), 2)
+    nbytes, ops = work_of(args[0], args[4], args[5], cfg, zeros(1, L),
+                          backward=True, has_flow=True)
+    b_ms, b_by, t_bytes, t_ops = bound(nbytes, ops)
+    log("timing", f"dense_backward at the launch check's shapes (T=1, "
+        f"PIX={pix}, L={L}, all-zero rows, need_dd={need_dd}): {ms:.4f} ms; "
+        f"plain {plain_ms:.3f} ms; bound {b_ms:.4f} ms ({b_by}: {nbytes} B -> "
+        f"{t_bytes:.4f} ms, {ops} fp32 ops -> {t_ops:.4f} ms); max_abs_err "
+        f"{err:.3g}")
 
 
 # ------------------------------------------------------- --profile only
@@ -3127,8 +3609,11 @@ def main():
     phase_determinism(scenes + flat_scenes, runs + flat_runs)
     phase_trainer(device, drift="--drift" in sys.argv[1:])
     render_launches = phase_render(device)
+    sharded_launches = phase_sharded(device, runs)
+    phase_sharded_trainer(device)
+    log("sharded", "ok")
     kernels = phase_timing(scenes, runs, flat_runs, worst, launches,
-                           render_launches)
+                           render_launches, sharded_launches)
     if "--profile" in sys.argv[1:]:
         phase_profile(scenes + flat_scenes)
         phase_profile_train(runs[0])

@@ -68,3 +68,13 @@ def depth_from_tof(tof: torch.Tensor, depth_range, phase_offset=0.0) -> torch.Te
     phase = torch.atan2(tof[..., 1], real) - phase_offset
     phase = torch.where(phase < 0.0, phase + 2.0 * math.pi, phase)
     return (phase / (4.0 * math.pi)) * depth_range
+
+
+def tof_from_depth(depth, amp, depth_range, phase_offset=0.0) -> torch.Tensor:
+    """Synthesize a (..., 3) real/imag/amp phasor image from depth and
+    amplitude (torf_utils.py:66-69)."""
+    depth = torch.as_tensor(depth)
+    phase = depth * (4.0 * math.pi / depth_range) + phase_offset
+    amp = torch.as_tensor(amp, dtype=phase.dtype, device=phase.device)
+    return torch.stack([amp * torch.cos(phase), amp * torch.sin(phase),
+                        amp * torch.ones_like(phase)], dim=-1)

@@ -1,0 +1,2 @@
+from gftorf_tpu_torch.render.settings import CameraSpec, RasterConfig, RenderOutputs
+from gftorf_tpu_torch.render.rasterize import rasterize

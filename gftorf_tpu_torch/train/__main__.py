@@ -10,6 +10,20 @@ there is none. The run writes what ``train.py`` writes under model_path:
 ``train_log.jsonl``, ``cfg_args_full.json``, the scene metadata,
 ``point_cloud/iteration_N/`` at the save iterations and ``chkpnt{N}.npz``
 at the checkpoint iterations.
+
+Multi-device training runs one process per rank under
+``torch.distributed.run`` with ``--distributed`` and the mesh in the
+config (``mesh_data`` x ``mesh_shards`` ranks), for example
+
+    python -m torch.distributed.run --nproc_per_node 2 \
+        -m gftorf_tpu_torch.train --config configs/ftorf.json \
+        --distributed --mesh_shards 2
+
+Each rank takes ``cuda:LOCAL_RANK`` (or the CPU with ``--device cpu``),
+and the backend follows the device (``nccl`` on cards, ``gloo`` on the
+CPU) unless ``--dist_backend`` names it: ranks that share one card
+(``--device cuda:0``) need ``--dist_backend gloo``. Rank 0 writes the
+tree above, once; the other ranks train in lockstep and write nothing.
 """
 
 from __future__ import annotations
@@ -33,7 +47,7 @@ from gftorf_tpu_torch.config import (
 # Flags that are not config fields (the iteration lists are both: flags
 # here, and saved with the config as train.py saves them).
 CLI_ONLY = ("config", "device", "quiet", "start_checkpoint", "profile_steps",
-            "distributed", "debug_nans", "tensorboard")
+            "distributed", "dist_backend", "debug_nans", "tensorboard")
 LIST_FLAGS = ("test_iterations", "save_iterations", "checkpoint_iterations")
 
 
@@ -53,8 +67,16 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--start_checkpoint", type=str, default=None)
     parser.add_argument("--quiet", action="store_true")
     parser.add_argument("--distributed", action="store_true",
-                        help="not supported: the multi-device step is not "
-                             "ported yet (ROADMAP, slice 6)")
+                        help="join the torch.distributed process group of "
+                             "torch.distributed.run (RANK, WORLD_SIZE, "
+                             "LOCAL_RANK, MASTER_ADDR/PORT) before any device "
+                             "is chosen; the mesh is mesh_data x mesh_shards "
+                             "of its ranks")
+    parser.add_argument("--dist_backend", type=str, default=None,
+                        choices=("nccl", "gloo"),
+                        help="with --distributed: nccl (one rank per card) "
+                             "or gloo (the CPU, or ranks sharing a card); "
+                             "default: nccl on CUDA, gloo on the CPU")
     parser.add_argument("--debug_nans", action="store_true",
                         help="not supported (a jax_debug_nans switch)")
     parser.add_argument("--tensorboard", action="store_true",
@@ -81,15 +103,37 @@ def main(argv=None):
     """Train as ``train.py`` does; returns the Trainer at the end."""
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.distributed:
-        parser.error("--distributed: the multi-device step is not ported yet "
-                     "(ROADMAP, slice 6)")
+    if args.dist_backend and not args.distributed:
+        parser.error("--dist_backend needs --distributed")
+    if args.distributed and "RANK" not in os.environ:
+        parser.error("--distributed needs the ranks of torch.distributed.run: "
+                     "python -m torch.distributed.run --nproc_per_node N -m "
+                     "gftorf_tpu_torch.train --distributed ...")
     if args.debug_nans:
         parser.error("--debug_nans is a JAX switch; it has no counterpart here")
     overrides = {k: v for k, v in vars(args).items()
                  if k not in CLI_ONLY and v is not None}
     cfg = Config.from_json(args.config, overrides)
 
+    from gftorf_tpu_torch.utils.runtime import resolve_device
+
+    if args.distributed:
+        from gftorf_tpu_torch.parallel.mesh import init_distributed
+
+        device = init_distributed(args.dist_backend, args.device)
+    else:
+        device = resolve_device(args.device)
+    try:
+        return _train(args, cfg, device)
+    finally:
+        if args.distributed:
+            import torch.distributed as dist
+
+            if dist.is_initialized():
+                dist.destroy_process_group()
+
+
+def _train(args, cfg, device):
     from gftorf_tpu_torch.train.debug import (
         dump_debug_images,
         param_histograms,
@@ -98,12 +142,13 @@ def main(argv=None):
     from gftorf_tpu_torch.train.evaluate import evaluate_and_report
     from gftorf_tpu_torch.train.export import save_scene_artifacts
     from gftorf_tpu_torch.train.loop import Trainer
-    from gftorf_tpu_torch.utils.runtime import resolve_device
 
-    device = resolve_device(args.device)
-    os.makedirs(cfg.model.model_path, exist_ok=True)
-    cfg.save(cfg.model.model_path)
     trainer = Trainer(cfg, device=device)
+    # Rank 0 of a mesh writes everything below; the others only train.
+    writer = trainer.is_writer
+    if writer:
+        os.makedirs(cfg.model.model_path, exist_ok=True)
+        cfg.save(cfg.model.model_path)
     if args.start_checkpoint:
         trainer.load_checkpoint(args.start_checkpoint)
 
@@ -116,11 +161,13 @@ def main(argv=None):
     ckpt_iters = args.checkpoint_iterations or []
 
     t_start = time.time()
-    log_f = open(os.path.join(cfg.model.model_path, "train_log.jsonl"), "a")
+    log_f = (open(os.path.join(cfg.model.model_path, "train_log.jsonl"), "a")
+             if writer else None)
+    quiet = args.quiet or not writer
     profile_range = args.profile_steps
     prof = None
     tb = None
-    if args.tensorboard:
+    if args.tensorboard and writer:
         try:
             from torch.utils.tensorboard import SummaryWriter
 
@@ -139,6 +186,8 @@ def main(argv=None):
             prof.export_chrome_trace(path)
             prof = None
             print(f"profiler trace written to {path}", flush=True)
+        if not writer:
+            return
         if oit % 50 == 0 or oit == 1:
             log_f.write(json.dumps(out) + "\n")
             log_f.flush()
@@ -146,7 +195,7 @@ def main(argv=None):
                 for k, v in out.items():
                     if isinstance(v, (int, float)) and k != "iteration":
                         tb.add_scalar(f"train/{k}", v, oit)
-        if not args.quiet and (oit % 200 == 0 or oit == 1):
+        if not quiet and (oit % 200 == 0 or oit == 1):
             print(f"[{oit}/{iterations}] loss {out['ema_loss']:.5f} "
                   f"pts {out['num_points']} vis {out['visible']} "
                   f"{out['iter_time'] * 1e3:.1f} ms", flush=True)
@@ -156,7 +205,8 @@ def main(argv=None):
             dump_debug_images(trainer, out["idx"], trainer.iteration)
 
     while trainer.iteration < iterations:
-        if profile_range and trainer.iteration + 1 == profile_range[0]:
+        if (profile_range and writer
+                and trainer.iteration + 1 == profile_range[0]):
             from torch.profiler import ProfilerActivity, profile
 
             acts = [ProfilerActivity.CPU] + (
@@ -169,7 +219,7 @@ def main(argv=None):
             outs += trainer.drain()
         for out in outs:
             handle_record(out)
-        if it in test_iters:
+        if it in test_iters and writer:
             report = evaluate_and_report(trainer)
             log_f.write(json.dumps({"eval": report, "iteration": it}) + "\n")
             log_f.write(json.dumps({"histograms": param_histograms(trainer.model),
@@ -183,10 +233,12 @@ def main(argv=None):
                 for name, vals in param_series(trainer.model).items():
                     if vals.size:
                         tb.add_histogram(f"scene/{name}", vals, it)
-            if not args.quiet:
+            if not quiet:
                 print(f"[eval {it}] {report}", flush=True)
-        if it in save_iters:
+        if it in save_iters and writer:
             save_scene_artifacts(trainer, it)
+        if it in test_iters or it in save_iters:
+            trainer.barrier()  # the other ranks wait for rank 0's writes
         if it in ckpt_iters:
             trainer.save_checkpoint(
                 os.path.join(cfg.model.model_path, f"chkpnt{it}.npz"))
@@ -194,8 +246,15 @@ def main(argv=None):
         handle_record(out)
     if prof is not None:
         prof.stop()
-    log_f.close()
-    print(f"Training complete in {time.time() - t_start:.1f} s")
+    if trainer.mesh is not None:
+        digest = trainer.check_ranks_agree()
+        if writer:
+            print(f"ranks agree: state digest {digest} on "
+                  f"{trainer.mesh.size} ranks", flush=True)
+    if writer:
+        log_f.close()
+        print(f"Training complete in {time.time() - t_start:.1f} s")
+    trainer.barrier()
     return trainer
 
 

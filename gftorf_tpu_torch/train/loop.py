@@ -33,11 +33,25 @@ Where the port differs from a line-by-line copy:
   the CPU.
 - The A/B toggles ``GFTORF_COMPACT_LAYOUT``, ``GFTORF_STATIC_FLOW`` and
   ``GFTORF_SSIM_IMPL`` are read once, here at init.
+- The mesh. The JAX Trainer is one controller over every device of its
+  (data, shard) mesh. Here each rank of a ``torch.distributed`` process
+  group runs this same host loop (``TpuParams.mesh_data`` x
+  ``mesh_shards`` ranks, ``parallel/mesh.py``): every rank seeds the same
+  host RNG, so all draw the same ``data`` cameras per iteration and each
+  trains its data slice's; every host decision (grow-and-replay, shrink,
+  the flat fallback, densify, prune, sort) reads values that the step
+  reduced to the same bits on every rank, so the ranks stay in lockstep.
+  Each data slice's random background comes from (seed, it, slice), and
+  slice 0's is the single-device draw. Only rank 0 writes
+  (``is_writer``): the start-up artifacts and, through its callers, the
+  log, evaluations, saves and checkpoints, while the others wait at
+  ``barrier``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import os
 import random
 import time
@@ -45,6 +59,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gftorf_tpu_torch.config import Config
 from gftorf_tpu_torch.data.scene import Scene
@@ -59,6 +74,7 @@ from gftorf_tpu_torch.models.gaussians import (
     reset_opacity_state,
     sort_layout,
 )
+from gftorf_tpu_torch.parallel.mesh import cached_mesh
 from gftorf_tpu_torch.render.settings import RasterConfig
 from gftorf_tpu_torch.train.step import (
     METRIC_NAMES,
@@ -81,16 +97,35 @@ from gftorf_tpu_torch.weights import (
 
 # Offset of densify's split-noise seeds from the step seeds (loop.py:713).
 DENSIFY_SEED_OFFSET = 1_000_000
+# A data slice's random-background seed adds its index at this bit.
+DATA_SLICE_SEED_SHIFT = 56
 
 
 class Trainer:
     """The training loop over one ``Scene`` on one device (``device=None``
-    means the CUDA card)."""
+    means the CUDA card), or on one rank of a mesh: with
+    ``mesh_data * mesh_shards`` > 1, or under a process group of more than
+    one rank, every rank of the (initialised) ``torch.distributed`` group
+    constructs its own Trainer with the same config and calls the same
+    methods in the same order."""
 
     def __init__(self, cfg: Config, scene: Optional[Scene] = None,
                  startup_artifacts: bool = True, device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        # The mesh (loop.py:213-229): every rank of the process group.
+        data_ax = max(1, cfg.tpu.mesh_data)
+        shard_ax = max(1, cfg.tpu.mesh_shards)
+        multi = dist.is_initialized() and dist.get_world_size() > 1
+        if data_ax * shard_ax > 1 and not multi:
+            raise RuntimeError(
+                f"mesh_data*mesh_shards={data_ax * shard_ax}: run one rank per "
+                "mesh place under torch.distributed.run (the train CLI's "
+                "--distributed)")
+        self.mesh = cached_mesh(data_ax, shard_ax) if multi else None
+        self.mesh_shape = (data_ax, shard_ax) if data_ax * shard_ax > 1 else None
+        self.data_ax = data_ax
+        self.is_writer = self.mesh is None or self.mesh.rank == 0
         # Seed before the Scene: its random point-cloud init draws from the
         # global np.random, and the camera pick from random (loop.py:65-75).
         m, opt = cfg.model, cfg.opt
@@ -107,7 +142,7 @@ class Trainer:
 
         # Init-time sanity artifacts (cameras.json, scene_bounds.png,
         # scene/__init__.py:63-83); a failed plot must not stop training.
-        if m.model_path and startup_artifacts:
+        if m.model_path and startup_artifacts and self.is_writer:
             from gftorf_tpu_torch.data.scene import (
                 write_scene_bounds_png,
                 write_scene_metadata,
@@ -172,11 +207,6 @@ class Trainer:
         self._occ_tile_max = 0
         self._occ_rendered_max = 0
 
-        if max(1, cfg.tpu.mesh_data) * max(1, cfg.tpu.mesh_shards) > 1:
-            raise NotImplementedError(
-                "mesh_data / mesh_shards > 1: the multi-device step is not "
-                "ported yet (ROADMAP, slice 6)")
-        self.mesh_shape = None
 
         if self.scene.scene_type == "torf":
             self.render_regions = ("dynamic",)
@@ -211,11 +241,34 @@ class Trainer:
             torch.zeros((1, 2), dtype=torch.int32, device=dev), cfg, True)
         torch.cuda.synchronize(dev)
 
-    def _rng(self, offset: int) -> torch.Generator:
-        """The generator of one draw: seeded from (seed, offset), so the
-        same offset (an iteration) always draws the same numbers."""
+    def barrier(self) -> None:
+        """Wait for every rank of the mesh (nothing on one device)."""
+        if self.mesh is not None:
+            dist.barrier()
+
+    def check_ranks_agree(self) -> str:
+        """A SHA-1 digest of this rank's state (the checkpoint tree and the
+        host capacities); under a mesh every rank must call it, and it
+        raises unless every rank holds the same digest."""
+        h = hashlib.sha1(repr((self.iteration, self.tile_cap, self.dup_factor,
+                               self.flat_stream)).encode())
+        for leaf in tree_leaves(self._checkpoint_tree()):
+            leaf = leaf.detach().cpu().numpy() if torch.is_tensor(leaf) else leaf
+            h.update(np.ascontiguousarray(leaf).tobytes())
+        digest = h.hexdigest()
+        if self.mesh is not None:
+            every = [None] * dist.get_world_size()
+            dist.all_gather_object(every, digest)
+            if len(set(every)) != 1:
+                raise RuntimeError(f"the ranks' states differ: digests {every}")
+        return digest
+
+    def _rng(self, offset: int, data_slice: int = 0) -> torch.Generator:
+        """The generator of one draw: seeded from (seed, offset, data
+        slice), so the same offset (an iteration) always draws the same
+        numbers; slice 0 draws what one device draws."""
         return torch.Generator(device=self.device).manual_seed(
-            (self.seed << 32) + offset)
+            (self.seed << 32) + offset + (data_slice << DATA_SLICE_SEED_SHIFT))
 
     def _update_deform_bucket(self):
         """Compaction buckets: next pow2 over the live counts (+5 %
@@ -325,10 +378,15 @@ class Trainer:
     def _dispatch(self, it: int, idx: int, static: StepStatic) -> dict:
         """Dispatch one step and record it in the pending pipeline."""
         prev = (self.model, self.deform, self.deform_adam)
-        fid = self.scene.data.train_cameras[idx].frame_id
+        cams = self.scene.data.train_cameras
+        if self.data_ax > 1:  # one camera per data slice (loop.py:661-666)
+            fid = [cams[i].frame_id for i in idx]
+            rng = [self._rng(it, k) for k in range(self.data_ax)]
+        else:
+            fid, rng = cams[idx].frame_id, self._rng(it)
         self.model, self.deform, self.deform_adam, packed = train_step(
             static, self.model, self.deform, self.deform_adam,
-            self.scene.train_frames, idx, it, self._rng(it), frame_id=fid)
+            self.scene.train_frames, idx, it, rng, frame_id=fid)
         event = None
         if packed.is_cuda:
             host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
@@ -564,11 +622,17 @@ class Trainer:
         if it % 1000 == 0 and self.active_sh_degree < m.sh_degree:
             self.active_sh_degree += 1
 
-        idx = self._pick_camera()
-        if self.static_flow:
+        if self.data_ax > 1:
+            # The slices' frames may differ in flow-frame-ness: the step
+            # gates the flow channels on each slice's frame at run time.
+            idx = [self._pick_camera() for _ in range(self.data_ax)]
+            static = self._static_for(it)
+        elif self.static_flow:
+            idx = self._pick_camera()
             fid = self.scene.data.train_cameras[idx].frame_id
             static = self._static_for(it, flow_frame=fid % 4 == 0)
         else:
+            idx = self._pick_camera()
             static = self._static_for(it)
         self._dispatch(it, idx, static)
 
@@ -644,6 +708,11 @@ class Trainer:
         }
 
     def save_checkpoint(self, path: str):
+        """Write the checkpoint (rank 0 of a mesh; every rank calls it and
+        waits for the write)."""
+        if not self.is_writer:
+            self.barrier()
+            return
         save_pytree(path, self._checkpoint_tree(), meta={
             "iteration": self.iteration,
             "active_sh_degree": self.active_sh_degree,
@@ -655,6 +724,7 @@ class Trainer:
             "flat_stream": self.flat_stream,
             "flat_auto": self._flat_auto,
         })
+        self.barrier()
 
     def load_checkpoint(self, path: str):
         """Resume from a checkpoint written by either package."""

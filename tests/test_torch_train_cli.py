@@ -152,14 +152,16 @@ def test_cli_needs_cuda_without_device(tmp_path, runs):
 @pytest.mark.parametrize("flag", [["--debug", "true", "--distributed"],
                                   ["--distributed"], ["--debug_nans"]])
 def test_cli_rejects_unported_switches(tmp_path, runs, flag, capsys):
-    """--distributed and --debug_nans are refused, with or without --debug
-    true (which the CLI takes: tests/test_torch_render_cli.py)."""
+    """--debug_nans is refused, and so is --distributed outside the ranks
+    of torch.distributed.run (under it the CLI trains on a mesh:
+    tests/test_torch_sharded_cli.py), with or without --debug true (which
+    the CLI takes: tests/test_torch_render_cli.py)."""
     cfg = os.path.join(str(runs["root"]), "cfg.json")
     with pytest.raises(SystemExit):
         main(["--config", cfg, "--model_path", str(tmp_path / "m"),
               "--device", "cpu"] + flag)
     if "--distributed" in flag:
-        assert "ROADMAP" in capsys.readouterr().err
+        assert "torch.distributed.run" in capsys.readouterr().err
 
 
 def test_lpips_with_synthetic_weights_matches_jax(tmp_path):

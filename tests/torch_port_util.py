@@ -521,3 +521,231 @@ def run_step_pair(jstatic, tstatic, arrays, pairs, idx, it, seed=0):
     assert_tree_equal(before, (state.model, state.deform, state.deform_adam,
                                tframes), "input")
     return jout, tout
+
+
+# ---------------------------------------------------------------------------
+# Multi-device steps (tests/test_torch_sharded_train*.py)
+
+# Tolerances of the JAX package's own sharded-step test
+# (tests/test_sharded_train.py): loss rtol 1e-4, parameters and deform
+# weights atol 2e-5 rtol 1e-3, xyz_grad_accum atol 1e-5 rtol 1e-3, denom
+# exact; and Adam's mu (0.1 x the gradient after the first step from zero
+# moments) at the single-device tolerances above, which a gradient
+# counted once per rank fails.
+SHARD_LOSS_RTOL = 1e-4
+SHARD_PARAM_ATOL, SHARD_PARAM_RTOL = 2e-5, 1e-3
+SHARD_ACCUM_ATOL = 1e-5
+
+
+def sharded_step_runs(jstatic, tstatic, arrays, pairs, idx, it, meshes, out_dir):
+    """One step from ``arrays`` under each (data, shard) of ``meshes``, by
+    both packages (the port's meshes of one size in one set of gloo CPU
+    ranks, tests/torch_dist_ranks.py), and the port's single-device step at
+    each camera of ``idx`` (one per data slice): returns (jax {mesh:
+    outputs}, port {mesh: [outputs of each rank]}, port {camera: outputs})."""
+    import dataclasses
+
+    import jax
+
+    from gftorf_tpu.train.step import train_step as j_step
+    from gftorf_tpu_torch.train.step import train_step as t_step
+    from torch_dist_ranks import run_ranks
+
+    jframes, tframes = stack_frames(pairs)
+    jmodel, jdeform, jdadam = jax_train_state(arrays)
+    jax_out, port_out = {}, {}
+    for world in sorted({d * s for d, s in meshes}):
+        group = [m for m in meshes if m[0] * m[1] == world]
+        ranks = run_ranks("step", world, dict(
+            arrays=arrays, static=tstatic, frames=tframes, idx=list(idx),
+            it=it, meshes=group), f"{out_dir}/world{world}")
+        for mesh in group:
+            port_out[mesh] = [r[mesh] for r in ranks]
+            jax_out[mesh] = j_step(
+                dataclasses.replace(jstatic, mesh_shape=mesh), jmodel, jdeform,
+                jdadam, jframes, jnp.asarray(idx[: mesh[0]], jnp.int32),
+                jnp.int32(it), jax.random.PRNGKey(0))
+    single = {}
+    for i in sorted(set(idx[: max(d for d, _ in meshes)])):
+        state = torch_train_state(arrays, tstatic.deform)
+        single[i] = t_step(tstatic, state.model, state.deform,
+                           state.deform_adam, tframes, i, it)
+    return jax_out, port_out, single
+
+
+def _step_leaves(out):
+    """(name, numpy array) of a step's outputs of either package: the
+    Gaussian parameters, densify stats, Adam mu, the deform MLP's weights
+    and mu (JAX layout), and the metrics."""
+    from gftorf_tpu_torch.weights import deform_dict_to_numpy
+
+    model, deform, deform_adam, packed = out
+    np_ = lambda x: x.numpy() if torch.is_tensor(x) else np.asarray(x)  # noqa: E731
+    if isinstance(deform, dict):
+        deform = deform_dict_to_numpy(deform)
+        dmu = deform_dict_to_numpy(deform_adam.mu)
+    else:
+        deform = (deform.hidden_w, deform.hidden_b, deform.head_w, deform.head_b)
+        mu = deform_adam.mu
+        dmu = (mu.hidden_w, mu.hidden_b, mu.head_w, mu.head_b)
+
+    def mlp(tree, tag):
+        hw, hb, w, b = tree
+        return ([(f"{tag}.hidden_w{i}", np_(x)) for i, x in enumerate(hw)]
+                + [(f"{tag}.hidden_b{i}", np_(x)) for i, x in enumerate(hb)]
+                + [(f"{tag}.head_w.{k}", np_(w[k])) for k in sorted(w)]
+                + [(f"{tag}.head_b.{k}", np_(b[k])) for k in sorted(b)])
+
+    fields = model.params._fields
+    return dict(
+        [(f"params.{k}", np_(getattr(model.params, k))) for k in fields]
+        + [(f"mu.{k}", np_(getattr(model.adam.mu, k))) for k in fields]
+        + [(f"aux.{k}", np_(getattr(model.aux, k))) for k in model.aux._fields]
+        + mlp(deform, "deform") + mlp(dmu, "deform_mu")
+        + [("metrics", np_(packed))])
+
+
+def assert_sharded_step_close(port, ref, what, same_mesh=True):
+    """A sharded step of the port against a reference step's outputs (the
+    JAX package's under the same mesh, or with ``same_mesh`` False the
+    port's single device, whose ``num_rendered`` and ``rendered_max``
+    count the whole image where a mesh reports its deepest band's count
+    times the shards) at the tolerances above."""
+    from gftorf_tpu.train.step import METRIC_NAMES
+
+    p, r = _step_leaves(port), _step_leaves(ref)
+    pm, rm = dict(zip(METRIC_NAMES, p["metrics"])), dict(zip(METRIC_NAMES, r["metrics"]))
+    np.testing.assert_allclose(pm["loss"], rm["loss"], rtol=SHARD_LOSS_RTOL,
+                               err_msg=f"{what}: loss")
+    counts = ("visible", "num_points", "dup_overflow", "tile_overflow", "tile_max")
+    if same_mesh:
+        counts += ("num_rendered", "rendered_max")
+    for name in counts:
+        assert pm[name] == rm[name], (what, name, pm[name], rm[name])
+    for name, ref_v in r.items():
+        got = p[name]
+        if name.startswith(("params.", "deform.")):
+            np.testing.assert_allclose(got, ref_v, atol=SHARD_PARAM_ATOL,
+                                       rtol=SHARD_PARAM_RTOL,
+                                       err_msg=f"{what}: {name}")
+        elif name.startswith(("mu.", "deform_mu.")):
+            _close_frac(got, ref_v, MU_ATOL_FRAC, MU_RTOL, f"{what}: {name}")
+        elif name == "aux.xyz_grad_accum":
+            np.testing.assert_allclose(got, ref_v, atol=SHARD_ACCUM_ATOL,
+                                       rtol=SHARD_PARAM_RTOL,
+                                       err_msg=f"{what}: {name}")
+        elif name.startswith("aux."):
+            np.testing.assert_array_equal(got, ref_v, f"{what}: {name}")
+
+
+def assert_ranks_equal(outs, what):
+    """Every rank's outputs bitwise equal to rank 0's."""
+    first = _step_leaves(outs[0])
+    for r, out in enumerate(outs[1:], 1):
+        for name, v in _step_leaves(out).items():
+            np.testing.assert_array_equal(v, first[name], f"{what}: rank {r} {name}")
+
+
+def mean_of_single_steps(single, idx):
+    """The Gaussians' Adam mu and the loss that a step averaging the
+    cameras ``idx`` gives after one update from zero moments: the means of
+    the single-camera steps' (mu is linear in the gradient; the deform
+    MLP's is not, its gradient is clipped by norm first)."""
+    from gftorf_tpu.train.step import METRIC_NAMES
+
+    leaves = [_step_leaves(single[i]) for i in idx]
+    out = {k: np.mean([lv[k] for lv in leaves], 0) for k in leaves[0]
+           if k.startswith("mu.")}
+    out["loss"] = np.mean([dict(zip(METRIC_NAMES, lv["metrics"]))["loss"]
+                           for lv in leaves])
+    return out
+
+
+SHARDED_CHECKS = ("ranks", "jax", "single")
+
+
+def check_sharded_step(runs, mesh, idx, check):
+    """One check of one mesh's step (tests/test_torch_sharded_train*.py):
+    "ranks", every rank's state bitwise equal; "jax", the port's step
+    against the JAX package's under the mesh; "single", against the
+    port's single device: the step itself for a shard-only mesh, the mean
+    of the single-camera steps' mu and losses for a (data > 1) mesh,
+    which averages them."""
+    from gftorf_tpu.train.step import METRIC_NAMES
+
+    jax_out, port_out, single = runs
+    outs = port_out[mesh]
+    if check == "ranks":
+        assert len(outs) == mesh[0] * mesh[1]
+        assert_ranks_equal(outs, f"mesh {mesh}")
+    elif check == "jax":
+        assert_sharded_step_close(outs[0], jax_out[mesh], f"mesh {mesh} vs JAX")
+    elif mesh[0] == 1:
+        assert_sharded_step_close(outs[0], single[idx[0]],
+                                  f"mesh {mesh} vs one device", same_mesh=False)
+    else:
+        want = mean_of_single_steps(single, idx[: mesh[0]])
+        got = _step_leaves(outs[0])
+        loss = dict(zip(METRIC_NAMES, got["metrics"]))["loss"]
+        np.testing.assert_allclose(loss, want.pop("loss"), rtol=SHARD_LOSS_RTOL,
+                                   err_msg=f"mesh {mesh}: loss vs one device")
+        for name, ref in want.items():
+            _close_frac(got[name], ref, MU_ATOL_FRAC, MU_RTOL,
+                        f"mesh {mesh} vs one device: {name}")
+
+
+def torf_step_case(depth=4, width=32):
+    """The two-camera ToRF case of the sharded step tests: (jax static,
+    port static, state arrays, frame pairs, camera of each data slice,
+    iteration). Color 64x48 with 16x32 tiles, ToF 48x32 with 16x16 tiles
+    (three tile rows, so four shards leave a band empty), the shuffled row
+    layout with both gather buckets, the depth, depth-distortion,
+    opacity-entropy, scale and deform-regularizer terms on, iteration 300
+    where the deform Adam steps."""
+    sched = dict(
+        warm_up=100, position_lr_init=1.6e-4, position_lr_final=1.6e-6,
+        deform_lr_init=8e-4, deform_lr_final=1.6e-6, scaling_lr=0.001,
+        dd_window=(0, 20000), oe_window=(0, 20000), scale_window=(0, 20000),
+        weights=dict(color=1.0, tof=1.0, dssim=0.2, depth=0.1, dd=0.05,
+                     flow=0.0, oe=0.01, scale=0.1, mlp_reg=0.01))
+    rc = dict(width=64, height=48, tile_h=16, tile_w=32, max_per_tile=512,
+              need_dd=False, need_distribution=False)
+    rt = dict(width=48, height=32, tile_h=16, tile_w=16, max_per_tile=512,
+              need_dd=True, need_distribution=False)
+    jstatic, tstatic = statics(
+        "torf", rc, rt, depth, width, sched=sched, render_regions=("dynamic",),
+        color_on=True, depth_on=True, dd_on=True, oe_on=True, scale_on=True,
+        mlp_reg_on=True, deform_clip=0.5,
+        bg_color=(0.1, 0.2, 0.3, 0.05, 0.1, 0.15, 0.2),
+        compact_layout=False, render_bucket=192, deform_bucket=128)
+    arrays = train_state_arrays(11, 160, 224, depth, width, sorted_layout=False)
+    pairs = [frame_pair(60 + fid, fid, (64, 48), (48, 32), (fid, fid + 50))
+             for fid in (3, 5)]
+    return jstatic, tstatic, arrays, pairs, (1, 0), 300
+
+
+def ftorf_step_case(depth=4, width=32):
+    """The single-camera F-ToRF case: 64x48 with 16x16 tiles (three tile
+    rows), quad ToF, the flow loss gated at run time (``flow_frame`` None,
+    as the Trainer gates a data-parallel batch) on an integration frame
+    (id 8, camera 1) and a lerp frame (id 6, camera 0), the sorted layout
+    with the static-slice buckets, iteration 300."""
+    sched = dict(
+        warm_up=100, flow_start=100, position_lr_init=1.6e-4,
+        position_lr_final=1.6e-6, deform_lr_init=8e-4, deform_lr_final=1.6e-6,
+        scaling_lr=0.001,
+        weights=dict(color=0.0, tof=1.0, dssim=0.2, depth=0.0, dd=0.0,
+                     flow=0.5, oe=0.0, scale=0.0, mlp_reg=0.01))
+    rc = dict(width=64, height=48, tile_h=16, tile_w=16, max_per_tile=512,
+              need_dd=False, need_distribution=False)
+    jstatic, tstatic = statics(
+        "ftorf", rc, rc, depth, width, sched=sched, single_camera=True,
+        use_quad=True, use_wl1p=True, color_on=False, flow_on=True,
+        flow_frame=None, mlp_reg_on=True, active_sh_degree=2,
+        tof_inverse_permutation=(2, 0, 3, 1), tof_permutation=(1, 3, 0, 2),
+        bg_color=(0.1, 0.2, 0.3, 0.05, 0.1, 0.15, 0.2), deform_clip=0.5,
+        compact_layout=True, render_bucket=192, deform_bucket=96)
+    arrays = train_state_arrays(13, 160, 224, depth, width)
+    pairs = [frame_pair(80 + fid, fid, (64, 48), (64, 48), (fid, fid), flow=True)
+             for fid in (6, 8)]
+    return jstatic, tstatic, arrays, pairs, (1, 0), 300
