@@ -154,10 +154,13 @@ Phases, each printing lines tagged with its name and raising on failure:
             step on the card (compare_steps); the flat mesh equals the dense
             one bitwise; reruns of (1,2) and (2,2) are bitwise equal; the
             last band's rank holds kernels 1-4 against their plain versions
-            on its own band's inputs (origins from its first tile row); each
-            rank's launches equal its renders; (2,2) at the [train-vs-cpu]
-            size against (2,2) on the CPU (gloo, plain kernels) at that
-            phase's tolerances. Prints ms/step per mesh and rank (ranks
+            on its own band's inputs (origins from its first tile row; the
+            backward with a cotangent in [-1, 1]), and the check must refuse
+            a zeroed gradient and the pair one tile row up; each rank's
+            launches equal its renders; (2,2) at the [train-vs-cpu] size
+            (4,000 Gaussians in 6,001 rows, which divide by neither shard
+            count, so the rendered rows are padded) against (2,2) on the CPU
+            (gloo, plain kernels) at that phase's tolerances. Prints ms/step per mesh and rank (ranks
             sharing one card over gloo) and each rank's peak memory. Then
             ``python -m torch.distributed.run --nproc_per_node 2 -m
             gftorf_tpu_torch.train --distributed`` on configs/ftorf.json with
@@ -2760,29 +2763,60 @@ def _sharded_case(case, payload, dev):
 
 def _band_kernel_checks(calls, names, is_flat):
     """The kernel pair of a band's first render against its plain versions,
-    on the band's own inputs (its tile origins start at its first row)."""
+    on the band's own inputs (its tile origins start at its first row).
+    The backward takes a cotangent in [-1, 1] in place of the step's, whose
+    gradients lie below ``compare_bwd``'s atol; and the check must refuse a
+    zeroed gradient and a pair run with the band placed one tile row up."""
+    import numpy as np
+    import torch
+
     from gftorf_tpu_torch.render.kernels import dense, flat
 
-    fwd, bwd = calls[names[0]], calls[names[1]]
-    origins = fwd[-2] if not is_flat else fwd[4]
+    fwd, bwd = calls[names[0]], list(calls[names[1]])
+    origins, config = fwd[-2], fwd[-1]
     row0 = int(origins[:, 1].min())
+    g = bwd[3]
+    rng = np.random.default_rng(row0)
+    bwd[3] = torch.tensor(rng.uniform(-1, 1, tuple(g.shape)).astype(np.float32),
+                          device=g.device)
     if is_flat:
-        out, contrib = flat.composite_forward_flat_cuda(*fwd)
-        ref_out, ref_contrib = flat.composite_forward_flat_plain(*fwd)
-        dfeat = flat.composite_backward_flat_cuda(*bwd)
-        ref_dfeat = flat.composite_backward_flat_plain(*bwd)
+        kernels = (flat.composite_forward_flat_cuda,
+                   flat.composite_backward_flat_cuda)
+        plain = (flat.composite_forward_flat_plain,
+                 flat.composite_backward_flat_plain)
         pair = ("flat_forward", "flat_backward")
     else:
-        out, contrib = dense.composite_forward_cuda(*fwd)
-        ref_out, ref_contrib = dense.composite_forward_plain(*fwd)
-        dfeat = dense.composite_backward_cuda(*bwd)
-        ref_dfeat = dense.composite_backward_plain(*bwd)
+        kernels = (dense.composite_forward_cuda, dense.composite_backward_cuda)
+        plain = (dense.composite_forward_plain, dense.composite_backward_plain)
         pair = ("dense_forward", "dense_backward")
+    out, contrib = kernels[0](*fwd)
+    ref_out, ref_contrib = plain[0](*fwd)
+    dfeat = kernels[1](*bwd)
+    ref_dfeat = plain[1](*bwd)
     what = f"{pair[0]} on a band from pixel row {row0}"
     err_f, lanes = compare(out, contrib, ref_out, ref_contrib, what)
     err_b, _ = compare_bwd(dfeat, ref_dfeat, lanes, what)
+
+    # The check's power: a zeroed dfeat, and both kernels at origins one
+    # tile row up (a wrong band offset), must fail it.
+    up = origins.clone()
+    up[:, 1] -= config.tile_h
+    out_up, contrib_up = kernels[0](*fwd[:-2], up, config)
+    dfeat_up = kernels[1](*bwd[:-3], up, *bwd[-2:])
+    for label, check in (
+            ("zeroed dfeat", lambda: compare_bwd(torch.zeros_like(dfeat),
+                                                 ref_dfeat, lanes, what)),
+            ("forward one tile row up", lambda: compare(
+                out_up, contrib_up, ref_out, ref_contrib, what)),
+            ("dfeat one tile row up", lambda: compare_bwd(
+                dfeat_up, ref_dfeat, lanes, what))):
+        try:
+            check()
+        except AssertionError:
+            continue
+        raise AssertionError(f"{what}: the check passed a {label}")
     return {"row0": row0, "tiles": int(fwd[1].shape[0]), pair[0]: err_f,
-            pair[1]: err_b}
+            pair[1]: err_b, "dfeat_max": float(ref_dfeat.abs().max())}
 
 
 def run_mesh(world, device, payload, tag):
@@ -2876,7 +2910,8 @@ def phase_sharded(device, runs):
     import torch
 
     ftorf, torf = runs
-    small = TrainRun("ftorf", 4000, 10_000, device, random_bg=False,
+    # 6,001 rows (no render bucket at that capacity): padded over the shards.
+    small = TrainRun("ftorf", 4000, 6001, device, random_bg=False,
                      dxyz_scale=1000.0)
     while True:  # grow the buffers until the step does not overflow
         _, m = small.run_step(2101, 0)
@@ -2952,7 +2987,10 @@ def phase_sharded(device, runs):
                         f"{r[i]['kernels']['tiles']} tiles), kernels against "
                         f"their plain versions: max abs err " + ", ".join(
                             f"{k} {v:.3g}" for k, v in r[i]["kernels"].items()
-                            if k in KERNELS))
+                            if k in KERNELS)
+                        + f" (backward with a cotangent in [-1, 1]: max |dfeat| "
+                        f"{r[i]['kernels']['dfeat_max']:.3g}); a zeroed dfeat "
+                        "and the pair one tile row up fail the check")
     if digests["ftorf (1,2) flat"] != digests["ftorf (1,2) dense"]:
         raise AssertionError("flat (1,2) differs from dense (1,2)")
     for label in ("ftorf (1,2) dense", "ftorf (2,2) dense"):

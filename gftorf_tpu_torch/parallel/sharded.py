@@ -136,7 +136,7 @@ def rasterize_sharded(
 
     if config.flat_stream:
         binning = bin_gaussians_flat(local_rect, depth, valid_all, local_cfg,
-                                     capacity, num_tiles=local_T)
+                                     capacity)
         ids = binning.gauss_flat
         feat = torch.where((ids >= 0)[:, None], gather_rows(packed, ids), 0.0)
         block, contrib = FlatComposite.apply(

@@ -174,15 +174,12 @@ def bin_gaussians_flat(
     valid: torch.Tensor,
     config: RasterConfig,
     capacity: int,
-    num_tiles: int | None = None,
 ) -> FlatBinning:
     """Build the aligned flat-stream layout (binning.py:169-270): the same
     expansion and sort as ``bin_gaussians``, then each tile's instances go
     to a segment of whole FLAT_ALIGN blocks (at least one per tile, so an
-    empty tile still owns a block), in (K_pad,) slots. ``num_tiles`` sizes
-    the tile grid, the stream and the block->tile map in place of
-    ``config.num_tiles`` (the sharded render's band of tile rows)."""
-    T = config.num_tiles if num_tiles is None else num_tiles
+    empty tile still owns a block), in (K_pad,) slots."""
+    T = config.num_tiles
     A = FLAT_ALIGN
     K_pad = flat_stream_capacity(capacity, T)
     dev = rect.device

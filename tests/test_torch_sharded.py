@@ -1,6 +1,6 @@
 """The port's multi-device rasterizer (``parallel/sharded.py``), its mesh
-and backends (``parallel/mesh.py``), the flat binning's ``num_tiles``,
-and the packages' public names, against the JAX package.
+and backends (``parallel/mesh.py``), the flat binning of a band of tile
+rows, and the packages' public names, against the JAX package.
 
 ``rasterize_sharded`` runs on gloo CPU ranks (tests/torch_dist_ranks.py)
 over 2 and 4 shards; the JAX ``rasterize_sharded`` under ``shard_map``
@@ -14,7 +14,10 @@ does). 64x48 pixels in 16x16 tiles: three tile rows, so four shards
 leave one band empty. The flat-stream render equals the dense one (at
 those tolerances on the CPU); a scene squashed into one band reports the
 deepest band's need in ``rendered_worst``, as JAX does; every rank holds
-bitwise the same outputs.
+bitwise the same outputs. A scene of 241 Gaussians, some of them not
+``alive``, divides by neither shard count, so its rows (``flow_precomp``
+and ``alive`` too) are padded to ``per * n`` and the pixel counts and
+radii are cut back to 241; it is held against JAX's sharded render.
 """
 
 import dataclasses
@@ -47,6 +50,7 @@ IMAGES = {"color": 3, "phasor": 7, "depth": 1, "acc": 1,
 INTEGERS = ("radii", "num_rendered", "dup_overflow", "tile_overflow",
             "tile_max")
 CFG = dict(height=H, width=W, tile_h=16, tile_w=16, max_per_tile=512)
+ODD_P = 241  # divides by no shard count: the rows are padded
 
 
 def _inputs(seed, n=240, height=H, squash=1.0):
@@ -75,8 +79,9 @@ def _loss(out, maps, lib):
     return total
 
 
-def _jax_sharded(x, maps, n, jcam, cfg):
+def _jax_sharded(x, maps, n, jcam, cfg, alive=None):
     mesh = j_make_mesh(data=1, shard=n)
+    alive = None if alive is None else jnp.asarray(alive)
 
     @functools.partial(shard_map, mesh=mesh, in_specs=(P(),), out_specs=P(),
                        check_vma=False)
@@ -85,7 +90,7 @@ def _jax_sharded(x, maps, n, jcam, cfg):
             a["means3d"], a["scales"], a["rotations"], a["opacities"], a["shs"],
             a["shs_p"], a["phase_offset"], a["dc_offset"], a["means2d_ndc"],
             a["bg_map"], camera=jcam, config=cfg, axis_name="shard",
-            flow_precomp=a["flow"])
+            alive=alive, flow_precomp=a["flow"])
 
     def loss(a):
         out = render(a)
@@ -113,14 +118,18 @@ def scene():
     jcam, tcam = cameras(W, H, seed=4, jitter=0.05)
     skew, _ = _inputs(9, height=64, squash=0.05)
     jcam64, tcam64 = cameras(W, 64, seed=4)
+    odd, _ = _inputs(11, n=ODD_P)
+    alive = np.random.default_rng(12).uniform(size=ODD_P) > 0.2
+    alive[-1] = True
     return dict(x=x, maps=maps, jcam=jcam, tcam=tcam, skew=skew,
-                jcam64=jcam64, tcam64=tcam64)
+                jcam64=jcam64, tcam64=tcam64, odd=odd, alive=alive)
 
 
 @pytest.fixture(scope="module")
 def ranks(scene, tmp_path_factory):
     """Each shard count's ranks: the dense render with gradients, the flat
-    render with gradients, the skewed 64x64 scene; and the mesh shapes."""
+    render with gradients, the skewed 64x64 scene, the padded scene dense
+    and flat with gradients; and the mesh shapes."""
     s = scene
     cases = [
         dict(x=s["x"], camera=s["tcam"], config=TConfig(**CFG), maps=s["maps"]),
@@ -128,6 +137,10 @@ def ranks(scene, tmp_path_factory):
              config=TConfig(**CFG, flat_stream=True)),
         dict(x=s["skew"], camera=s["tcam64"],
              config=TConfig(**dict(CFG, height=64))),
+        dict(x=s["odd"], camera=s["tcam"], config=TConfig(**CFG),
+             maps=s["maps"], alive=s["alive"]),
+        dict(x=s["odd"], camera=s["tcam"], maps=s["maps"], alive=s["alive"],
+             config=TConfig(**CFG, flat_stream=True)),
     ]
     out = {}
     for n in SHARDS:
@@ -145,6 +158,8 @@ def references(scene):
     ref = {"single": _port_single(s["x"], s["maps"], s["tcam"], TConfig(**CFG))}
     for n in SHARDS:
         ref[n] = _jax_sharded(s["x"], s["maps"], n, s["jcam"], jcfg)
+        ref["odd", n] = _jax_sharded(s["odd"], s["maps"], n, s["jcam"], jcfg,
+                                     alive=s["alive"])
     return ref
 
 
@@ -192,7 +207,10 @@ def test_sharded_flat_equals_dense(ranks, n):
     and a dense one over max_per_tile lanes, so the two agree at the image
     and gradient tolerances (bitwise on the card, chip_smoke.py), with
     equal integers."""
-    dense, flat = ranks[n][0][0][:2]
+    _check_flat_equals_dense(*ranks[n][0][0][:2])
+
+
+def _check_flat_equals_dense(dense, flat):
     for k, v in dense["out"].items():
         if k == "tile_overflow":
             assert int(flat["out"][k]) == 0 == int(v)
@@ -202,6 +220,36 @@ def test_sharded_flat_equals_dense(ranks, n):
             assert torch.equal(flat["out"][k], v), k
     for k, v in dense["grads"].items():
         assert_close(flat["grads"][k], v, GRAD_ATOL, GRAD_RTOL, k)
+
+
+@pytest.mark.parametrize("n", SHARDS)
+def test_padded_rows_match_jax(scene, ranks, references, n):
+    """241 Gaussians over 2 and 4 shards: rows padded to ``per * n`` (the
+    features, ``flow_precomp`` and ``alive``), instance ids into the
+    padded layout, pixel counts and radii cut back to 241; outputs and
+    gradients against JAX's sharded render, which drops the padded ids
+    in its segment sum."""
+    got = ranks[n][0][0][3]
+    want, want_grads = references["odd", n]
+    assert got["out"]["radii"].shape == (ODD_P,)
+    assert got["out"]["pixels"].shape == (ODD_P, 1)
+    _check_outputs(got["out"], want, f"{ODD_P} Gaussians, {n} shards vs JAX")
+    for k in ("num_rendered", "rendered_worst"):
+        assert int(got["out"][k]) == int(getattr(want, k)), k
+    for k in INPUTS:
+        assert got["grads"][k].shape == want_grads[k].shape, k
+        assert_close(got["grads"][k], want_grads[k], GRAD_ATOL, GRAD_RTOL,
+                     f"{ODD_P} Gaussians: d loss / d {k}")
+    dead = torch.tensor(~scene["alive"])
+    assert float(got["out"]["pixels"][dead].abs().sum()) == 0.0
+    assert float(got["out"]["pixels"].sum()) > 0.0
+
+
+@pytest.mark.parametrize("n", SHARDS)
+def test_padded_rows_flat_equals_dense(ranks, n):
+    """The padded scene's flat render equals its dense one (at the image
+    and gradient tolerances on the CPU), integers exactly."""
+    _check_flat_equals_dense(*ranks[n][0][0][3:5])
 
 
 @pytest.mark.parametrize("n", SHARDS)
@@ -241,8 +289,9 @@ def test_make_mesh(ranks, n):
 
 
 def test_bin_gaussians_flat_num_tiles():
-    """The flat binning of one band of tile rows (the sharded flat path's
-    call, ``num_tiles`` = the band's tiles) equals JAX's exactly."""
+    """The flat binning of one band of tile rows equals JAX's exactly. JAX's
+    sharded flat path passes ``num_tiles`` = the band's tiles; the port's
+    takes the band's own config, whose ``num_tiles`` is that count."""
     from gftorf_tpu.render.binning import bin_gaussians_flat as j_bin
     from gftorf_tpu.render.preprocess import preprocess as j_pre
     from gftorf_tpu_torch.render.binning import bin_gaussians_flat as t_bin
@@ -262,8 +311,7 @@ def test_bin_gaussians_flat_num_tiles():
         want = j_bin(jnp.asarray(band), pre.depth_view, pre.valid, JConfig(**kw),
                      1024, num_tiles=T)
         got = t_bin(torch.tensor(band), torch.tensor(np.asarray(pre.depth_view)),
-                    torch.tensor(np.asarray(pre.valid)), TConfig(**kw), 1024,
-                    num_tiles=T)
+                    torch.tensor(np.asarray(pre.valid)), TConfig(**kw), 1024)
         for k in want._fields:
             np.testing.assert_array_equal(getattr(got, k).numpy(),
                                           np.asarray(getattr(want, k)), k)

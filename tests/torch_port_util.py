@@ -701,7 +701,9 @@ def torf_step_case(depth=4, width=32):
     (three tile rows, so four shards leave a band empty), the shuffled row
     layout with both gather buckets, the depth, depth-distortion,
     opacity-entropy, scale and deform-regularizer terms on, iteration 300
-    where the deform Adam steps."""
+    where the deform Adam steps. The buckets (191 rendered rows, 127
+    deformed rows) divide by no shard count, so a sharded step pads the
+    rows of its render and of its deform MLP."""
     sched = dict(
         warm_up=100, position_lr_init=1.6e-4, position_lr_final=1.6e-6,
         deform_lr_init=8e-4, deform_lr_final=1.6e-6, scaling_lr=0.001,
@@ -717,7 +719,7 @@ def torf_step_case(depth=4, width=32):
         color_on=True, depth_on=True, dd_on=True, oe_on=True, scale_on=True,
         mlp_reg_on=True, deform_clip=0.5,
         bg_color=(0.1, 0.2, 0.3, 0.05, 0.1, 0.15, 0.2),
-        compact_layout=False, render_bucket=192, deform_bucket=128)
+        compact_layout=False, render_bucket=191, deform_bucket=127)
     arrays = train_state_arrays(11, 160, 224, depth, width, sorted_layout=False)
     pairs = [frame_pair(60 + fid, fid, (64, 48), (48, 32), (fid, fid + 50))
              for fid in (3, 5)]
@@ -729,7 +731,9 @@ def ftorf_step_case(depth=4, width=32):
     rows), quad ToF, the flow loss gated at run time (``flow_frame`` None,
     as the Trainer gates a data-parallel batch) on an integration frame
     (id 8, camera 1) and a lerp frame (id 6, camera 0), the sorted layout
-    with the static-slice buckets, iteration 300."""
+    with the static-slice buckets, iteration 300. The deform bucket (95
+    rows, two samples each) divides by no shard count; the render bucket
+    (192) divides by both."""
     sched = dict(
         warm_up=100, flow_start=100, position_lr_init=1.6e-4,
         position_lr_final=1.6e-6, deform_lr_init=8e-4, deform_lr_final=1.6e-6,
@@ -744,7 +748,7 @@ def ftorf_step_case(depth=4, width=32):
         flow_frame=None, mlp_reg_on=True, active_sh_degree=2,
         tof_inverse_permutation=(2, 0, 3, 1), tof_permutation=(1, 3, 0, 2),
         bg_color=(0.1, 0.2, 0.3, 0.05, 0.1, 0.15, 0.2), deform_clip=0.5,
-        compact_layout=True, render_bucket=192, deform_bucket=96)
+        compact_layout=True, render_bucket=192, deform_bucket=95)
     arrays = train_state_arrays(13, 160, 224, depth, width)
     pairs = [frame_pair(80 + fid, fid, (64, 48), (64, 48), (fid, fid), flow=True)
              for fid in (6, 8)]
