@@ -94,9 +94,11 @@ Phases, each printing lines tagged with its name and raising on failure:
             against flat.
 8. trainer  the Trainer through its CLI (gftorf_tpu_torch.train.__main__.main
             in this process) on datasets the port's writer puts under
-            build/trainer/: an ftorf "room" scene (16 frames) and a ToRF one
-            (8 frames, .mat intrinsics, a colour camera offset from the ToF
-            camera), both at 320x240, and the verify recipe's 64x48 scene.
+            build/trainer/: an ftorf "room" scene (16 frames) at 320x240, a
+            ToRF one (8 frames, .mat intrinsics, a colour camera offset from
+            the ToF camera, ToF at 320x240 and colour at 640x480 from a
+            second write of the same seed, whose poses and Gaussians must
+            equal the first's), and the verify recipe's 64x48 scene.
             configs/ftorf.json at full width for 260 iterations (warm-up to
             100, densify every 50 from 100, the opacity reset at 250, the
             deform MLP stepping at 201-249, evaluations at 100 and 260, a
@@ -106,8 +108,18 @@ Phases, each printing lines tagged with its name and raising on failure:
             Trainer's frame (atol 1e-4, rtol 1e-3), the checkpoint resuming
             to an equal state, the start-up launch check of dense_backward
             run once, both dense kernels launched in the run. Then
-            configs/torf.json for 30 iterations (two cameras, regions
-            ("dynamic",)); a run whose max_per_tile_limit (256) is below the
+            configs/torf.json as shipped (colour 640x480 at
+            color_scale_factor 0.5, no colour flag overridden) for 30
+            iterations (two cameras, regions ("dynamic",), densify at 20
+            and 30, an evaluation and a save at 30): the readers resized
+            every colour frame to 320x240 (utils/resize.py, no cv2), the
+            colour cameras are 320x240, both dense kernels launched and the
+            start-up check ran once, the artifact tree is complete with
+            scene_bounds.png (drawn without matplotlib, as in the ftorf
+            run); prints the start-up read and resize seconds and
+            ms/iteration past warm-up, and adds its launches (counted from
+            0 around the run) to the ``kernels`` line; a run whose
+            max_per_tile_limit (256) is below the
             scene's deepest tile, where the flat fallback must engage and
             both flat kernels launch; the verify recipe, where mae_d_tof
             must fall; two identical 8-iteration runs with bitwise-equal
@@ -1852,11 +1864,13 @@ VERIFY_CFG = dict(total_num_views=8, tof_image_width=64, tof_image_height=48,
 class recorded:
     """Wrap ``owner.name`` for a ``with`` block: each call is timed on the
     host clock between two device synchronisations and its ms appended to
-    ``self.ms``, its return value to ``self.results``."""
+    ``self.ms``, its return value to ``self.results`` (and, with
+    ``keep_args``, its positional arguments to ``self.args``)."""
 
-    def __init__(self, owner, name, device):
+    def __init__(self, owner, name, device, keep_args=False):
         self.owner, self.name, self.device = owner, name, device
-        self.ms, self.results = [], []
+        self.keep_args = keep_args
+        self.ms, self.results, self.args = [], [], []
 
     def __enter__(self):
         import torch
@@ -1872,6 +1886,8 @@ class recorded:
             sync()
             self.ms.append(1e3 * (time.perf_counter() - t0))
             self.results.append(out)
+            if self.keep_args:
+                self.args.append(a)
             return out
 
         setattr(self.owner, self.name, wrapped)
@@ -1899,15 +1915,19 @@ def read_launches():
 
 
 def write_trainer_datasets(device, width=320, height=240, n_ftorf=16, n_torf=8):
-    """The port's writer: an ftorf ``room`` scene and a ToRF-layout one at
-    the configs' image size (so the readers resize nothing), the ToRF one
-    in a real capture's layout (.mat intrinsics, a colour camera offset
-    from the ToF camera by relative_pose.npy: two cameras), and the verify
-    recipe's 64x48 scene."""
+    """The port's writer: an ftorf ``room`` scene at the configs' ToF size,
+    a ToRF-layout one in a real capture's layout (ToF at width x height,
+    colour at twice that, as configs/torf.json reads 640x480 at 0.5; .mat
+    intrinsics; a colour camera offset from the ToF camera by
+    relative_pose.npy: two cameras), and the verify recipe's 64x48 scene.
+    The ToRF colour stream comes from a second write of the same seed and
+    layout at twice the size, which must share the first's poses and
+    Gaussians; its color/ and colour intrinsics replace the first's."""
     import shutil
 
     import numpy as np
     import scipy.io
+    import torch
 
     from gftorf_tpu_torch.data.generate import write_dataset
 
@@ -1916,9 +1936,25 @@ def write_trainer_datasets(device, width=320, height=240, n_ftorf=16, n_torf=8):
     t0 = time.perf_counter()
     write_dataset(paths["ftorf"], num_frames=n_ftorf, width=width, height=height,
                   layout="room", seed=SEED + 30, device=device)
-    write_dataset(paths["torf"], num_frames=n_torf, width=width, height=height,
-                  layout="room", torf_layout=True, seed=SEED + 31, device=device)
+    big = paths["torf"] + "_2x"
+    g_tof, g_col = (write_dataset(d, num_frames=n_torf, width=w, height=h,
+                                  layout="room", torf_layout=True,
+                                  seed=SEED + 31, device=device)
+                    for d, w, h in ((paths["torf"], width, height),
+                                    (big, 2 * width, 2 * height)))
     cams = os.path.join(paths["torf"], "cams")
+    for name in ("tof_extrinsics", "color_extrinsics"):
+        if not np.array_equal(np.load(os.path.join(cams, f"{name}.npy")),
+                              np.load(os.path.join(big, "cams", f"{name}.npy"))):
+            raise AssertionError(f"the two ToRF writes differ in {name}")
+    if sorted(g_tof) != sorted(g_col) or not all(
+            torch.equal(g_tof[k], g_col[k]) for k in g_tof
+            if torch.is_tensor(g_tof[k])):
+        raise AssertionError("the two ToRF writes drew different Gaussians")
+    shutil.rmtree(os.path.join(paths["torf"], "color"))
+    shutil.copytree(os.path.join(big, "color"), os.path.join(paths["torf"], "color"))
+    shutil.copy(os.path.join(big, "cams", "color_intrinsics.npy"), cams)
+    shutil.rmtree(big)
     for name in ("tof_intrinsics", "color_intrinsics"):
         k = np.load(os.path.join(cams, f"{name}.npy"))
         scipy.io.savemat(os.path.join(cams, f"{name}.mat"), {"K": k})
@@ -1932,8 +1968,10 @@ def write_trainer_datasets(device, width=320, height=240, n_ftorf=16, n_torf=8):
                   device=device)
     secs = time.perf_counter() - t0
     log("trainer", f"datasets written by gftorf_tpu_torch.data.generate in "
-        f"{secs:.2f} s: ftorf room {n_ftorf} frames and torf room {n_torf} "
-        f"frames at {width}x{height}, verify {VERIFY_CFG['total_num_views']} "
+        f"{secs:.2f} s: ftorf room {n_ftorf} frames at {width}x{height}, torf "
+        f"room {n_torf} frames with ToF at {width}x{height} and colour at "
+        f"{2 * width}x{2 * height} (a second write of the same seed: same "
+        f"poses and Gaussians), verify {VERIFY_CFG['total_num_views']} "
         f"frames at 64x48")
     return paths
 
@@ -1961,13 +1999,11 @@ def train_cli(device, config, model_path, *flags):
 
 
 def check_artifacts(model_path, it):
-    """The artifact tree of train.py; scene_bounds.png only where matplotlib
-    is installed (the Trainer warns and goes on without it)."""
-    import importlib.util
-
-    plot = ["scene_bounds.png"] if importlib.util.find_spec("matplotlib") else []
+    """The artifact tree of train.py, scene_bounds.png included (drawn
+    without a plotting library)."""
     want = ["train_log.jsonl", "cfg_args_full.json", "cfg_args", "cameras.json",
-            "cameras_full.json", "nerf_normalization.json", "input.ply"] + plot + [
+            "cameras_full.json", "nerf_normalization.json", "input.ply",
+            "scene_bounds.png"] + [
         f"point_cloud/iteration_{it}/{f}" for f in (
             "point_cloud.ply", "point_cloud_full.ply", "phase_offset.npy",
             "dc_offset.npy", "deform_model.npz")]
@@ -2098,7 +2134,10 @@ def trainer_overhead(tr, n=20):
 
 def phase_trainer(device, width=320, height=240, n_ftorf=16, iters=260,
                   drift=False):
-    """The Trainer through its CLI at full width (module docstring, 8)."""
+    """The Trainer through its CLI at full width (module docstring, 8);
+    returns each kernel's launches in the torf run at configs/torf.json."""
+    from gftorf_tpu_torch.data import readers
+    from gftorf_tpu_torch.data import scene as scene_mod
     from gftorf_tpu_torch.train import evaluate, loop
 
     data = write_trainer_datasets(device, width, height, n_ftorf)
@@ -2179,22 +2218,69 @@ def phase_trainer(device, width=320, height=240, n_ftorf=16, iters=260,
         f"ms (median of {ev_frames}); {overhead}")
     del tr
 
-    # ToRF: two cameras, render regions ("dynamic",). The colour camera is
-    # written at the ToF camera's size (torf.json reads 640x480 at 0.5).
-    tr, recs, evals = train_cli(
-        device, cfg_torf, os.path.join(out, "torf"),
-        "--source_path", data["torf"], "--total_num_views", 8,
-        "--color_image_width", width, "--color_image_height", height,
-        "--color_scale_factor", 1.0, "--iterations", 30, "--warm_up", 10,
-        "--test_iterations", 30, "--save_iterations", 30)
+    # ToRF at configs/torf.json as shipped: colour 640x480 read at
+    # color_scale_factor 0.5 to the ToF camera's 320x240 (two cameras,
+    # render regions ("dynamic",)); densify at 20 and 30.
+    t_iters, t_warm, t_every = 30, 10, 10
+    n_torf = 8
+    reset_launches()
+    with recorded(readers, "scale_image", device, keep_args=True) as scaled, \
+            recorded(scene_mod, "read_scene", device) as reads, \
+            recorded(scene_mod, "stack_frames", device) as stacks, \
+            recorded(loop.Trainer, "_densify", device) as tdens, \
+            recorded(loop.Trainer, "check_backward_launch", device) as tcheck:
+        tr, recs, evals = train_cli(
+            device, cfg_torf, os.path.join(out, "torf"),
+            "--source_path", data["torf"], "--total_num_views", n_torf,
+            "--iterations", t_iters, "--warm_up", t_warm,
+            "--densify_from_iter", t_warm, "--densification_interval", t_every,
+            "--test_iterations", t_iters, "--save_iterations", t_iters)
+    launches = torf_launches = read_launches()
+    colour = [(a[0].shape, r.shape) for a, r in zip(scaled.args, scaled.results)
+              if a[1] != 1.0]
+    if colour != [((2 * height, 2 * width, 3), (height, width, 3))] * n_torf:
+        raise AssertionError(f"torf run: the readers resized {colour}, want "
+                             f"{n_torf} colour frames from "
+                             f"{2 * width}x{2 * height} to {width}x{height}")
+    cams = tr.scene.data.train_cameras
+    if tr.scene.color_size != (height, width) or any(
+            (c.width, c.height, c.image.shape[:2]) != (width, height, (height, width))
+            for c in cams):
+        raise AssertionError(f"torf run: colour cameras {tr.scene.color_size}, "
+                             f"not {width}x{height}")
     if tr.render_regions != ("dynamic",) or tr.scene.cameras_identical:
         raise AssertionError(f"torf run: regions {tr.render_regions}, cameras "
                              f"identical {tr.scene.cameras_identical}")
-    log("trainer", f"torf (configs/torf.json, two cameras, regions "
-        f"{tr.render_regions}): 30 iterations, loss {recs[0]['loss']:.5g} -> "
-        f"{recs[-1]['loss']:.5g}, eval mae_d_tof "
-        f"{evals[0]['eval']['test']['mae_d_tof']:.5f}, median "
-        f"{statistics.median(r['iter_time'] * 1e3 for r in recs[1:]):.3f} ms/iteration")
+    if not (launches["dense_forward"] and launches["dense_backward"]):
+        raise AssertionError(f"torf Trainer run: dense kernels not launched: "
+                             f"{launches}")
+    if (len(tdens.ms) != 2 or len(evals) != 1
+            or (device.type == "cuda" and len(tcheck.ms) != 1)):
+        raise AssertionError(f"torf run: {len(tdens.ms)} densify events, "
+                             f"{len(evals)} evaluations, {len(tcheck.ms)} "
+                             f"start-up checks")
+    n_files = check_artifacts(tr.cfg.model.model_path, t_iters)
+    resize_s = sum(ms for (a, ms) in zip(scaled.args, scaled.ms)
+                   if a[1] != 1.0) / 1e3
+    past = [r["iter_time"] * 1e3 for r in recs if r["iteration"] > t_warm]
+    log("trainer", f"torf (configs/torf.json as shipped: ToF {width}x{height}, "
+        f"colour {2 * width}x{2 * height} at color_scale_factor 0.5; two cameras, "
+        f"regions {tr.render_regions}): start-up read_scene "
+        f"{reads.ms[0] / 1e3:.3f} s ({resize_s:.3f} s of it resizing "
+        f"{len(colour)} colour frames {2 * width}x{2 * height} -> "
+        f"{width}x{height}), frames stacked in {sum(stacks.ms) / 1e3:.3f} s; "
+        f"{t_iters} iterations, loss {recs[0]['loss']:.5g} -> "
+        f"{recs[-1]['loss']:.5g}, num_points {recs[0]['num_points']} -> "
+        f"{recs[-1]['num_points']} (densify at {t_warm + t_every} and "
+        f"{t_iters}), eval mae_d_tof {evals[0]['eval']['test']['mae_d_tof']:.5f}; "
+        f"{n_files} artifacts, scene_bounds.png among them; kernel launches "
+        f"{launches}, the start-up check {len(tcheck.ms)}")
+    log("trainer", f"torf timing on "
+        f"{card_line() if device.type == 'cuda' else 'cpu'}: ms/iteration "
+        f"(host median of iter_time) {statistics.median(past):.3f} past "
+        f"warm-up (iterations {t_warm + 1}-{t_iters}), "
+        f"{statistics.median(r['iter_time'] * 1e3 for r in recs[1:]):.3f} "
+        f"over iterations 2-{t_iters} (the basis of earlier readings)")
     del tr
 
     # The flat fallback: a ceiling below the scene's deepest tile.
@@ -2246,6 +2332,7 @@ def phase_trainer(device, width=320, height=240, n_ftorf=16, iters=260,
     if drift:
         phase_trainer_drift(device, data["verify"])
     log("trainer", "ok")
+    return torf_launches
 
 
 def phase_trainer_drift(device, source):
@@ -3249,7 +3336,7 @@ def gather_costs(packed, ids_flat, ids_dense):
 
 
 def phase_timing(scenes, runs, flat_runs, worst, launches, render_launches,
-                 sharded_launches):
+                 sharded_launches, trainer_launches):
     import torch
 
     from gftorf_tpu_torch.render.kernels import dense, flat
@@ -3377,7 +3464,8 @@ def phase_timing(scenes, runs, flat_runs, worst, launches, render_launches,
             f"the {'train-flat' if name.startswith('flat') else 'train'} phase "
             f"{launches[name]} over {counted[name.split('_')[0]]}, in the "
             f"render phase {render_launches[name]}, in the sharded phase "
-            f"{sharded_launches[name]} (summed over ranks); max_abs_err "
+            f"{sharded_launches[name]} (summed over ranks), in the trainer "
+            f"phase's torf run {trainer_launches[name]}; max_abs_err "
             f"{worst[name]:.3g}; {occ['blocks_per_sm']} block(s) of "
             f"{cfg.tile_pixels} threads per SM, {occ['registers']} registers, "
             f"{occ['spill_bytes']} B local, {occ['shared_bytes']} B shared "
@@ -3386,7 +3474,7 @@ def phase_timing(scenes, runs, flat_runs, worst, launches, render_launches,
             name=name, route="cuda", source=f"gftorf_tpu_torch/csrc/{name}.cu",
             replaces=REPLACES[name],
             launches=(launches[name] + render_launches[name]
-                      + sharded_launches[name]),
+                      + sharded_launches[name] + trainer_launches[name]),
             max_abs_err=worst[name], ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
             bound_by=b_by, library_ms=None))
     launch_check_timing(runs[0])
@@ -3645,13 +3733,13 @@ def main():
     phase_train_vs_cpu(device)
     phase_deep_tile(device)
     phase_determinism(scenes + flat_scenes, runs + flat_runs)
-    phase_trainer(device, drift="--drift" in sys.argv[1:])
+    trainer_launches = phase_trainer(device, drift="--drift" in sys.argv[1:])
     render_launches = phase_render(device)
     sharded_launches = phase_sharded(device, runs)
     phase_sharded_trainer(device)
     log("sharded", "ok")
     kernels = phase_timing(scenes, runs, flat_runs, worst, launches,
-                           render_launches, sharded_launches)
+                           render_launches, sharded_launches, trainer_launches)
     if "--profile" in sys.argv[1:]:
         phase_profile(scenes + flat_scenes)
         phase_profile_train(runs[0])

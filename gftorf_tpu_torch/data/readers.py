@@ -1,7 +1,11 @@
 """Dataset readers for ToRF and F-ToRF scenes.
 
-The port's own copy of ``gftorf_tpu/data/readers.py`` (numpy only; cv2,
-scipy.io and PIL are imported only where a dataset needs them). Numpy
+The port's own copy of ``gftorf_tpu/data/readers.py``, numpy only:
+images are resized by ``utils/resize.py`` (OpenCV's INTER_AREA and
+INTER_NEAREST, where the JAX package calls cv2) and PNGs decoded by
+``utils/image_io.py`` (where it calls PIL); scipy.io is imported for
+``.mat`` intrinsics, and PIL only for a COLMAP image that is not a PNG
+(``_read_colmap_image``). Numpy
 ports of the reference readers
 (scene/dataset_readers.py:343-606 readToRFSceneInfo, :716-1003
 readFToRFSceneInfo), producing plain-array records the Scene layer stacks
@@ -21,6 +25,8 @@ from typing import List, Optional
 import numpy as np
 
 from gftorf_tpu_torch.config import ModelParams
+from gftorf_tpu_torch.utils.image_io import is_png, read_png
+from gftorf_tpu_torch.utils.resize import resize
 
 
 def normalize_im_max(im):
@@ -28,12 +34,11 @@ def normalize_im_max(im):
 
 
 def scale_image(image, scale=1.0, nearest=False):
+    """``cv2.resize(image, None, fx=scale, fy=scale)``, INTER_AREA or
+    INTER_NEAREST, without cv2."""
     if scale == 1.0:
         return image
-    import cv2
-
-    interp = cv2.INTER_NEAREST if nearest else cv2.INTER_AREA
-    return cv2.resize(image, None, fx=scale, fy=scale, interpolation=interp)
+    return resize(image, fx=scale, fy=scale, nearest=nearest)
 
 
 def get_camera_params(intrinsics_file, extrinsics_file, total_num_views,
@@ -591,11 +596,26 @@ def _color_only_record(uid, R, T, fov_x, fov_y, width, height, image,
     )
 
 
+def _read_colmap_image(path: str) -> np.ndarray:
+    """``np.asarray(PIL.Image.open(path))``: a PNG decoded by
+    ``utils/image_io.py``; any other format (a JPEG) by PIL, the one image
+    library the port imports, and only here. Without PIL such an image
+    raises an ImportError that names it."""
+    if is_png(path):
+        return read_png(path)
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(
+            f"{path}: not a PNG. The port decodes PNG itself and any other "
+            f"image format (JPEG) only through PIL, which is not installed; "
+            f"convert the images to PNG or install Pillow") from e
+    return np.asarray(Image.open(path))
+
+
 def read_colmap_scene(path: str, args: ModelParams, eval_split: bool,
                       llffhold: int = 8) -> SceneData:
     """readColmapSceneInfo (dataset_readers.py:191-238)."""
-    from PIL import Image
-
     from gftorf_tpu_torch.data.colmap import (
         qvec2rotmat,
         read_cameras_binary,
@@ -629,7 +649,7 @@ def read_colmap_scene(path: str, args: ModelParams, eval_split: bool,
         else:
             raise ValueError(f"unsupported colmap model {c.model}")
         img = np.asarray(
-            Image.open(os.path.join(img_dir, os.path.basename(e.name))),
+            _read_colmap_image(os.path.join(img_dir, os.path.basename(e.name))),
             np.float32,
         )[..., :3] / 255.0
         cams.append(_color_only_record(
@@ -670,8 +690,6 @@ def read_blender_scene(path: str, args: ModelParams, eval_split: bool,
     """readNerfSyntheticInfo (dataset_readers.py:241-340)."""
     import json
 
-    from PIL import Image
-
     from gftorf_tpu_torch.ops.transforms import focal2fov, fov2focal
 
     def load_split(transforms):
@@ -684,12 +702,9 @@ def read_blender_scene(path: str, args: ModelParams, eval_split: bool,
             c2w = np.array(fr["transform_matrix"])
             c2w[:3, 1:3] *= -1  # OpenGL -> COLMAP axes
             w2c = np.linalg.inv(c2w)
-            img = np.asarray(
-                Image.open(
-                    os.path.join(path, fr["file_path"] + extension)
-                ).convert("RGBA"),
-                np.float32,
-            ) / 255.0
+            # PIL's Image.open(...).convert("RGBA")
+            img = read_png(os.path.join(path, fr["file_path"] + extension),
+                           mode="RGBA").astype(np.float32) / 255.0
             rgb = img[..., :3] * img[..., 3:] + bg * (1 - img[..., 3:])
             h, w = rgb.shape[:2]
             fov_y = focal2fov(fov2focal(fov_x, w), h)

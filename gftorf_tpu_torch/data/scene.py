@@ -7,8 +7,8 @@ stacked into one ``FrameData`` with a leading frame axis on the device;
 the training step takes a frame by index (``take_frame``).
 
 GT handling matches loadCam (utils/camera_utils.py:21-78): everything is
-resized to the color image size (cv2, imported only when a size differs)
-and the color image is quantized through uint8.
+resized to the color image size (``utils/resize.py``, OpenCV's INTER_AREA
+in numpy) and the color image is quantized through uint8.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ from gftorf_tpu_torch.models.gaussians import GaussianModelState, init_from_pcd
 from gftorf_tpu_torch.ops.transforms import projection_matrix_shift, world_to_view
 from gftorf_tpu_torch.render.settings import CameraSpec, RasterConfig
 from gftorf_tpu_torch.train.step import FrameData, _take_frame
+from gftorf_tpu_torch.utils.resize import resize
 from gftorf_tpu_torch.utils.runtime import resolve_device
 
 
@@ -34,9 +35,7 @@ def _resize_to(img, width, height):
         return None
     if img.shape[1] == width and img.shape[0] == height:
         return img
-    import cv2
-
-    return cv2.resize(img, (width, height), interpolation=cv2.INTER_AREA)
+    return resize(img, (width, height))
 
 
 def camera_spec(R, T, fx, fy, cx, cy, width, height, fov_x, fov_y,
@@ -243,27 +242,22 @@ def camera_to_json(idx: int, cam: CameraRecord, full: bool = False) -> dict:
     return entry
 
 
-def write_scene_bounds_png(scene: "Scene", model_path: str) -> None:
-    """3D scatter of camera positions/directions/frustum corners, the
-    reference's init-time sanity plot (torf_utils.py:437-466)."""
-    import matplotlib
+# scene_bounds.png: three orthographic views, each a square panel.
+_PANEL, _PAD, _TITLE_H = 300, 24, 18
+_AXES = ((0, 1), (0, 2), (1, 2))
+_GREEN, _RED, _BLUE, _GREY = (0, 128, 0), (220, 0, 0), (0, 0, 255), (110, 110, 110)
 
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
 
-    cams = scene.data.train_cameras
+def _camera_geometry(cams):
+    """Positions, unit view directions and frustum corners of the ToF
+    cameras (torf_utils.py:437-466)."""
     pos = np.array([-(c.R_tof @ c.T_tof) for c in cams])
     dirs = np.array([c.R_tof[:, 2] for c in cams])
-    fig = plt.figure(figsize=(10, 7))
-    ax = plt.axes(projection="3d")
-    ax.scatter3D(pos[:, 0], pos[:, 1], pos[:, 2], color="green")
-    for p, d in zip(pos, dirs):
-        ax.quiver(p[0], p[1], p[2], d[0], d[1], d[2], color="red",
-                  length=3, normalize=True)
+    dirs = dirs / np.maximum(np.linalg.norm(dirs, axis=1, keepdims=True), 1e-12)
+    corners = []
     for c in cams:
         right, up, fwd = c.R_tof[:, 0], c.R_tof[:, 1], c.R_tof[:, 2]
         center = -(c.R_tof @ c.T_tof)
-        corners = []
         for z in (c.znear, c.zfar):
             h = 2.0 * np.tan(c.fov_y_tof / 2.0) * z
             w = 2.0 * np.tan(c.fov_x_tof / 2.0) * z
@@ -271,12 +265,71 @@ def write_scene_bounds_png(scene: "Scene", model_path: str) -> None:
                 for sx in (-1, 1):
                     corners.append(center + fwd * z + up * (sy * h / 2)
                                    + right * (sx * w / 2))
-        corners = np.array(corners)
-        ax.scatter3D(corners[:, 0], corners[:, 1], corners[:, 2],
-                     color="blue", s=4)
-    plt.title("Camera Poses")
-    plt.savefig(os.path.join(model_path, "scene_bounds.png"))
-    plt.close(fig)
+    return pos, dirs, np.array(corners)
+
+
+def _draw_segments(img, p0, p1, color):
+    """Lines between pixel points p0[k] and p1[k] (x, y), clipped."""
+    for a, b in zip(p0, p1):
+        n = int(np.ceil(np.abs(b - a).max())) + 1
+        t = np.linspace(0.0, 1.0, n)[:, None]
+        _draw_dots(img, a + (b - a) * t, color, 0)
+
+
+def _draw_dots(img, pts, color, radius):
+    """Squares of side 2 * radius + 1 at pixel points (x, y), clipped."""
+    h, w = img.shape[:2]
+    xy = np.rint(pts).astype(np.int64)
+    for dy in range(-radius, radius + 1):
+        for dx in range(-radius, radius + 1):
+            x, y = xy[:, 0] + dx, xy[:, 1] + dy
+            keep = (x >= 0) & (x < w) & (y >= 0) & (y < h)
+            img[y[keep], x[keep]] = color
+
+
+def write_scene_bounds_png(scene: "Scene", model_path: str) -> None:
+    """The reference's init-time sanity plot (torf_utils.py:437-466):
+    camera positions (green), view directions 3 units long (red) and
+    frustum corners (blue), drawn as three orthographic views (x-y, x-z,
+    y-z) with the bitmap font and PNG writer of the render path, so no
+    plotting library is needed. The JAX package draws the same points as
+    a matplotlib 3D scatter."""
+    from gftorf_tpu_torch.utils.image_io import write_png
+    from gftorf_tpu_torch.video_panel import put_text, text_size
+
+    pos, dirs, corners = _camera_geometry(scene.data.train_cameras)
+    tips = pos + 3.0 * dirs
+    every = np.concatenate([pos, tips, corners], 0)
+    lo, hi = every.min(0), every.max(0)
+    side = _PANEL + 2 * _PAD
+    img = np.full((_TITLE_H + side, 3 * side, 3), 255, np.uint8)
+    title = "Camera Poses"
+    put_text(img, title, ((img.shape[1] - text_size(title)[0]) // 2, 12),
+             (0, 0, 0))
+    for k, (u, v) in enumerate(_AXES):
+        x0, y0 = k * side + _PAD, _TITLE_H + _PAD
+        # One scale on both axes, so the view keeps its proportions.
+        span = max(hi[u] - lo[u], hi[v] - lo[v], 1e-9)
+        mid = (lo[[u, v]] + hi[[u, v]]) / 2.0
+
+        def px(p):
+            q = (p[:, [u, v]] - mid) / span * (_PANEL - 1)
+            return np.stack([x0 + (_PANEL - 1) / 2.0 + q[:, 0],
+                             y0 + (_PANEL - 1) / 2.0 - q[:, 1]], 1)
+
+        img[y0, x0:x0 + _PANEL] = img[y0 + _PANEL - 1, x0:x0 + _PANEL] = _GREY
+        img[y0:y0 + _PANEL, x0] = img[y0:y0 + _PANEL, x0 + _PANEL - 1] = _GREY
+        _draw_dots(img, px(corners), _BLUE, 1)
+        _draw_segments(img, px(pos), px(tips), _RED)
+        _draw_dots(img, px(pos), _GREEN, 2)
+        names = "xyz"
+        put_text(img, f"{names[u]} (right) / {names[v]} (up)",
+                 (x0, y0 - 4), (0, 0, 0))
+        lo_txt = f"{names[u]} {mid[0] - span / 2:.3g}..{mid[0] + span / 2:.3g}"
+        hi_txt = f"{names[v]} {mid[1] - span / 2:.3g}..{mid[1] + span / 2:.3g}"
+        put_text(img, lo_txt, (x0, y0 + _PANEL + 10), _GREY)
+        put_text(img, hi_txt, (x0, y0 + _PANEL + 19), _GREY)
+    write_png(os.path.join(model_path, "scene_bounds.png"), img)
 
 
 def write_scene_metadata(scene: "Scene", model_path: str) -> None:

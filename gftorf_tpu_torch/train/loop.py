@@ -141,7 +141,8 @@ class Trainer:
         self.opacity_reset_interval = opt.opacity_reset_interval
 
         # Init-time sanity artifacts (cameras.json, scene_bounds.png,
-        # scene/__init__.py:63-83); a failed plot must not stop training.
+        # scene/__init__.py:63-83), drawn without a plotting library; a
+        # file that cannot be written must not stop training.
         if m.model_path and startup_artifacts and self.is_writer:
             from gftorf_tpu_torch.data.scene import (
                 write_scene_bounds_png,
@@ -151,7 +152,7 @@ class Trainer:
             try:
                 write_scene_metadata(self.scene, m.model_path)
                 write_scene_bounds_png(self.scene, m.model_path)
-            except Exception as e:
+            except OSError as e:
                 print(f"[warn] scene metadata/bounds write failed: {e}",
                       flush=True)
 

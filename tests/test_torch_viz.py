@@ -4,7 +4,7 @@ package's, on the CPU.
 ``utils/viz.py``'s magma maps must equal the JAX package's (matplotlib's
 ``cm.magma``) bit for bit, ``flow_to_image`` within 1 level; PNGs that
 ``utils/image_io.write_png`` writes decode exactly with imageio, and
-``read_png`` reads them back and refuses other PNGs; a ``write_gif`` file
+``read_png`` reads them back and refuses 16-bit PNGs; a ``write_gif`` file
 decodes with imageio to its frame count and shape, each frame within the
 palette's step of its source. The SIBR viewer's round trip runs against
 the port's module, with a numpy and a torch ``render_fn``.
@@ -104,14 +104,14 @@ def test_write_png_decodes_exactly(tmp_path, shape):
 
 
 def test_read_png_refuses_other_pngs(tmp_path):
+    # An 8-bit RGBA PNG is read (the general decoder, tests/test_torch_png.py)
     img = np.random.default_rng(3).integers(0, 256, (16, 16, 4), dtype=np.uint8)
     path = str(tmp_path / "rgba.png")
     imageio.imwrite(path, img)
-    with pytest.raises(ValueError, match="8-bit grey or RGB"):
-        image_io.read_png(path)
+    np.testing.assert_array_equal(image_io.read_png(path), img)
     path = str(tmp_path / "wide.png")
     imageio.imwrite(path, (np.arange(256, dtype=np.uint16) * 257).reshape(16, 16))
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="16-bit"):
         image_io.read_png(path)
     (tmp_path / "not.png").write_bytes(b"GIF89a")
     with pytest.raises(ValueError, match="not a PNG"):
