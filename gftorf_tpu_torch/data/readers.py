@@ -3,9 +3,8 @@
 The port's own copy of ``gftorf_tpu/data/readers.py``, numpy only:
 images are resized by ``utils/resize.py`` (OpenCV's INTER_AREA and
 INTER_NEAREST, where the JAX package calls cv2) and PNGs decoded by
-``utils/image_io.py`` (where it calls PIL); scipy.io is imported for
-``.mat`` intrinsics, and PIL only for a COLMAP image that is not a PNG
-(``_read_colmap_image``). Numpy
+``utils/image_io.py`` and JPEGs by ``utils/jpeg.py`` (where it calls
+PIL); scipy.io is imported for ``.mat`` intrinsics. Numpy
 ports of the reference readers
 (scene/dataset_readers.py:343-606 readToRFSceneInfo, :716-1003
 readFToRFSceneInfo), producing plain-array records the Scene layer stacks
@@ -26,6 +25,7 @@ import numpy as np
 
 from gftorf_tpu_torch.config import ModelParams
 from gftorf_tpu_torch.utils.image_io import is_png, read_png
+from gftorf_tpu_torch.utils.jpeg import is_jpeg, read_jpeg
 from gftorf_tpu_torch.utils.resize import resize
 
 
@@ -597,20 +597,15 @@ def _color_only_record(uid, R, T, fov_x, fov_y, width, height, image,
 
 
 def _read_colmap_image(path: str) -> np.ndarray:
-    """``np.asarray(PIL.Image.open(path))``: a PNG decoded by
-    ``utils/image_io.py``; any other format (a JPEG) by PIL, the one image
-    library the port imports, and only here. Without PIL such an image
-    raises an ImportError that names it."""
+    """``np.asarray(PIL.Image.open(path))`` for a PNG (``utils/image_io.py``)
+    or a baseline JPEG (``utils/jpeg.py``), bitwise; any other format raises
+    a ValueError that names the image."""
     if is_png(path):
         return read_png(path)
-    try:
-        from PIL import Image
-    except ImportError as e:
-        raise ImportError(
-            f"{path}: not a PNG. The port decodes PNG itself and any other "
-            f"image format (JPEG) only through PIL, which is not installed; "
-            f"convert the images to PNG or install Pillow") from e
-    return np.asarray(Image.open(path))
+    if is_jpeg(path):
+        return read_jpeg(path)
+    raise ValueError(f"{path}: neither a PNG nor a JPEG; the port decodes "
+                     f"only those two formats")
 
 
 def read_colmap_scene(path: str, args: ModelParams, eval_split: bool,

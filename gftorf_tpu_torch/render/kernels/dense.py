@@ -49,6 +49,7 @@ import torch
 
 from gftorf_tpu_torch.render.composite import ALPHA_EPS, ALPHA_MAX, T_STOP
 from gftorf_tpu_torch.render.settings import RasterConfig
+from gftorf_tpu_torch.utils import debug_nans
 
 FEAT_COLS = 24
 BG_COLS = 12
@@ -306,6 +307,7 @@ def composite_forward_cuda(feat_tl, bg_tiles, counts, origins,
     if err != 0:
         raise RuntimeError(f"dense_forward kernel launch failed: cudaError {err}")
     composite_forward_cuda.launches += 1
+    debug_nans.check_output("the dense_forward kernel", out, contrib)
     return out, contrib
 
 
@@ -629,6 +631,7 @@ def composite_backward_cuda(feat_tl, bg_tiles, out_res, g, counts, origins,
     if err != 0:
         raise RuntimeError(f"dense_backward kernel launch failed: cudaError {err}")
     composite_backward_cuda.launches += 1
+    debug_nans.check_output("the dense_backward kernel", dfeat)
     return dfeat
 
 

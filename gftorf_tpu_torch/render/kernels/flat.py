@@ -46,6 +46,7 @@ from gftorf_tpu_torch.render.kernels.dense import (
     check_tensors,
 )
 from gftorf_tpu_torch.render.settings import RasterConfig
+from gftorf_tpu_torch.utils import debug_nans
 
 # Tile segments in the stream start at FLAT_ALIGN multiples
 # (flat_stream.py:73-75 with its chunk variables unset).
@@ -186,6 +187,7 @@ def composite_forward_flat_cuda(feat_fl, bg_tiles, tile_start, tile_count,
     if err != 0:
         raise RuntimeError(f"flat_forward kernel launch failed: cudaError {err}")
     composite_forward_flat_cuda.launches += 1
+    debug_nans.check_output("the flat_forward kernel", out, contrib)
     return out, contrib
 
 
@@ -282,6 +284,7 @@ def composite_backward_flat_cuda(feat_fl, bg_tiles, out_res, g, tile_start,
     if err != 0:
         raise RuntimeError(f"flat_backward kernel launch failed: cudaError {err}")
     composite_backward_flat_cuda.launches += 1
+    debug_nans.check_output("the flat_backward kernel", dfeat)
     return dfeat
 
 

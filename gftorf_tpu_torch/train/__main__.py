@@ -11,6 +11,11 @@ there is none. The run writes what ``train.py`` writes under model_path:
 ``point_cloud/iteration_N/`` at the save iterations and ``chkpnt{N}.npz``
 at the checkpoint iterations.
 
+``--debug_nans`` (the counterpart of ``jax_debug_nans``) raises
+``FloatingPointError`` at the first op, kernel launch or backward function
+that makes a NaN (``utils/debug_nans.py``); every rank of a mesh checks
+its own ops. It changes no result, and it is slow.
+
 Multi-device training runs one process per rank under
 ``torch.distributed.run`` with ``--distributed`` and the mesh in the
 config (``mesh_data`` x ``mesh_shards`` ranks), for example
@@ -78,7 +83,11 @@ def build_parser() -> argparse.ArgumentParser:
                              "or gloo (the CPU, or ranks sharing a card); "
                              "default: nccl on CUDA, gloo on the CPU")
     parser.add_argument("--debug_nans", action="store_true",
-                        help="not supported (a jax_debug_nans switch)")
+                        help="raise FloatingPointError at the first op, "
+                             "kernel launch or backward function that makes "
+                             "a NaN (jax_debug_nans; the reference's "
+                             "--detect_anomaly). Every check waits for the "
+                             "device: slow, for debugging only")
     parser.add_argument("--tensorboard", action="store_true",
                         help="also write TensorBoard event files to model_path")
     for group in (ModelParams(), OptimizationParams(), PipelineParams(),
@@ -109,8 +118,6 @@ def main(argv=None):
         parser.error("--distributed needs the ranks of torch.distributed.run: "
                      "python -m torch.distributed.run --nproc_per_node N -m "
                      "gftorf_tpu_torch.train --distributed ...")
-    if args.debug_nans:
-        parser.error("--debug_nans is a JAX switch; it has no counterpart here")
     overrides = {k: v for k, v in vars(args).items()
                  if k not in CLI_ONLY and v is not None}
     cfg = Config.from_json(args.config, overrides)
@@ -124,6 +131,11 @@ def main(argv=None):
     else:
         device = resolve_device(args.device)
     try:
+        if args.debug_nans:
+            from gftorf_tpu_torch.utils.debug_nans import nan_checks
+
+            with nan_checks():
+                return _train(args, cfg, device)
         return _train(args, cfg, device)
     finally:
         if args.distributed:

@@ -1,13 +1,12 @@
-"""The port stands alone: no module of ``gftorf_tpu_torch`` and neither
-``chip_smoke.py`` nor ``chip_ab.py`` imports JAX or anything of the
-JAX package, and no module builds or loads a kernel when it is
-imported.
+"""The port stands alone: no module of ``gftorf_tpu_torch`` and none of
+``chip_smoke.py``, ``chip_ab.py`` and ``chip_parity20k.py`` imports JAX or
+anything of the JAX package, and no module builds or loads a kernel when
+it is imported.
 
 Nor do they import cv2, PIL or matplotlib, which the card's machine does
 not have: images are resized by ``utils/resize.py``, PNGs read and written
-by ``utils/image_io.py``, plots drawn with the bitmap font. The one
-exception is PIL for a COLMAP image that is not a PNG (a JPEG), in
-``data/readers.py::_read_colmap_image``. imageio is imported only by
+by ``utils/image_io.py``, JPEGs read by ``utils/jpeg.py``, plots drawn
+with the bitmap font. The one exception is imageio, imported only by
 ``utils/image_io.py::write_video``, which writes a GIF without it.
 """
 
@@ -18,14 +17,13 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SOURCES = sorted((ROOT / "gftorf_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "chip_ab.py"]
+    ROOT / "chip_smoke.py", ROOT / "chip_ab.py", ROOT / "chip_parity20k.py"]
 FORBIDDEN = ("jax", "jaxlib", "gftorf_tpu")
 
 
 IMAGE_LIBS = ("cv2", "PIL", "matplotlib")
 # (module, function, library) of the imports allowed above.
-ALLOWED = {("gftorf_tpu_torch/data/readers.py", "_read_colmap_image", "PIL"),
-           ("gftorf_tpu_torch/utils/image_io.py", "write_video", "imageio")}
+ALLOWED = {("gftorf_tpu_torch/utils/image_io.py", "write_video", "imageio")}
 
 
 def _import_of(node):

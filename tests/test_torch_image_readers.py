@@ -14,8 +14,9 @@ PIL; the port resizes with ``utils/resize.py`` and decodes PNGs with
 - an F-ToRF capture at ``tof_scale_factor`` 0.5, whose distance maps are
   shrunk with INTER_NEAREST and every ToF map brought back to the colour
   size by ``build_frame`` (INTER_AREA enlarging);
-- COLMAP (text model) with PNG images, and with a JPEG, which both
-  packages open with PIL; Blender with RGBA and palette PNGs.
+- COLMAP (text model) with PNG images, and with a JPEG, which the JAX
+  package opens with PIL and the port with ``utils/jpeg.py``; Blender with
+  RGBA and palette PNGs.
 
 ``SceneData`` is compared with ``tests/test_torch_data.py``'s exact
 ``assert_scene_data_equal``, frames with its ``assert_frames_equal``.
@@ -248,7 +249,7 @@ def test_startup_without_image_libraries(captures, tmp_path):
     imported, the port reads the ToRF capture at colour scale 0.5, starts
     its Trainer for one iteration on the CPU and writes the start-up
     artifacts, scene_bounds.png among them; a COLMAP model with a JPEG
-    raises the documented ImportError naming the image."""
+    loads, its JPEG decoded by ``utils/jpeg.py`` as PIL decodes it."""
     colmap = write_colmap(str(tmp_path / "colmap"),
                           lambda i: ".jpg" if i == 2 else ".png")
     cfg = dict(source_path=captures["torf"], total_num_views=FRAMES,
@@ -259,20 +260,20 @@ def test_startup_without_image_libraries(captures, tmp_path):
     with open(cfg_path, "w") as f:
         json.dump(cfg, f)
     out = str(tmp_path / "out")
+    jpeg_out = str(tmp_path / "view02.npy")
     script = textwrap.dedent(f"""
         import sys
         for m in {BLOCKED!r}:
             sys.modules[m] = None
+        import numpy as np
         from gftorf_tpu_torch.config import ModelParams
         from gftorf_tpu_torch.data.readers import read_colmap_scene
         from gftorf_tpu_torch.train.__main__ import main
         tr = main(["--config", {cfg_path!r}, "--model_path", {out!r},
                    "--device", "cpu", "--quiet", "--test_iterations", "0"])
         print("ITERATIONS", tr.iteration, tr.scene.color_size)
-        try:
-            read_colmap_scene({colmap!r}, ModelParams(), eval_split=False)
-        except ImportError as e:
-            print("IMPORT_ERROR", e)
+        data = read_colmap_scene({colmap!r}, ModelParams(), eval_split=False)
+        np.save({jpeg_out!r}, data.train_cameras[2].image)
         print("LOADED", sorted(m for m in {BLOCKED!r} if sys.modules.get(m)))
     """)
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -281,8 +282,9 @@ def test_startup_without_image_libraries(captures, tmp_path):
     assert proc.returncode == 0, proc.stderr[-3000:]
     lines = proc.stdout.splitlines()
     assert f"ITERATIONS 1 ({H}, {W})" in lines, proc.stdout[-2000:]
-    err = [ln for ln in lines if ln.startswith("IMPORT_ERROR")]
-    assert err and "view02.jpg" in err[0] and "PIL" in err[0], proc.stdout[-2000:]
+    want = np.asarray(Image.open(os.path.join(colmap, "images", "view02.jpg")),
+                      np.float32)[..., :3] / 255.0
+    np.testing.assert_array_equal(np.load(jpeg_out), want)
     assert "LOADED []" in lines
     assert "warn" not in proc.stdout + proc.stderr
     for name in ("scene_bounds.png", "cameras.json", "input.ply",

@@ -150,12 +150,13 @@ def test_cli_needs_cuda_without_device(tmp_path, runs):
 
 
 @pytest.mark.parametrize("flag", [["--debug", "true", "--distributed"],
-                                  ["--distributed"], ["--debug_nans"]])
+                                  ["--distributed"]])
 def test_cli_rejects_unported_switches(tmp_path, runs, flag, capsys):
-    """--debug_nans is refused, and so is --distributed outside the ranks
-    of torch.distributed.run (under it the CLI trains on a mesh:
-    tests/test_torch_sharded_cli.py), with or without --debug true (which
-    the CLI takes: tests/test_torch_render_cli.py)."""
+    """--distributed is refused outside the ranks of torch.distributed.run
+    (under it the CLI trains on a mesh: tests/test_torch_sharded_cli.py),
+    with or without --debug true (which the CLI takes:
+    tests/test_torch_render_cli.py); --debug_nans is taken
+    (tests/test_torch_debug_nans.py)."""
     cfg = os.path.join(str(runs["root"]), "cfg.json")
     with pytest.raises(SystemExit):
         main(["--config", cfg, "--model_path", str(tmp_path / "m"),
