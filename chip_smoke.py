@@ -106,8 +106,8 @@ Phases, each printing lines tagged with its name and raising on failure:
             finite, num_points changed by the densify events, the artifact
             tree complete, the saved PLY and deform_model.npz rendering the
             Trainer's frame (atol 1e-4, rtol 1e-3), the checkpoint resuming
-            to an equal state, the start-up launch check of dense_backward
-            run once, both dense kernels launched in the run. Then
+            to an equal state, the start-up fit check run once, both dense
+            kernels launched in the run. Then
             configs/torf.json as shipped (colour 640x480 at
             color_scale_factor 0.5, no colour flag overridden) for 30
             iterations (two cameras, regions ("dynamic",), densify at 20
@@ -135,7 +135,8 @@ Phases, each printing lines tagged with its name and raising on failure:
             dense_forward (or flat_forward, where a frame outgrows
             max_per_tile_limit) launches once per render, re-renders of a
             frame that overflowed the loaded max_per_tile included, and
-            dense_backward once (the Trainer's start-up check); every file
+            dense_backward never (the Trainer's start-up fit check runs
+            once and launches nothing); every file
             of the tree is there; two frames' depth .npy are bitwise equal to
             eval_frame in this process, and dense_forward is held against
             its plain version at the render's shapes; tile_overflow is
@@ -213,6 +214,21 @@ Phases, each printing lines tagged with its name and raising on failure:
             kernel wrappers, fed a NaN background or cotangent, raises
             FloatingPointError naming its kernel inside the mode and not
             outside it.
+13. fit-check  kernel 5, the Trainer's start-up fit check
+            (render/kernels/dense.py::check_backward_fits, in place of the
+            TPU's compile-only VMEM check): the card's occupancy query of
+            every instance of dense_backward at 16x32 and 16x16 tiles
+            against its plain model (blocks_per_sm_plain, from the device
+            properties it prints), equal; a Trainer start on each
+            [trainer] model (load_trained) checks both has_flow instances
+            at its dd_possible and launches no kernel; the check's host
+            time per call (mean of 200) beside the model's; the same
+            profiler window with and without 20 checks holds the same
+            device operations; the check raises for 32x32 tiles, for a
+            query stubbed to report 0 blocks and for one stubbed to return
+            a CUDA error, each stub undone after. Its entry in the
+            ``kernels`` line counts the checks of the main-path phases
+            ([trainer]'s torf run, [render], [bench]), with bound 0.
 
 ``python3 chip_smoke.py --profile`` adds a breakdown of a served frame by
 stage and the device's share of a training step under torch.profiler,
@@ -259,12 +275,23 @@ METRIC_RTOL = 1e-5
 MU_ATOL_FRAC, MU_RTOL = 1e-4, 1e-3
 NU_ATOL_FRAC, NU_RTOL = 2e-4, 2e-3
 KERNELS = ("dense_forward", "dense_backward", "flat_forward", "flat_backward")
+# Kernel 5: the Trainer's start-up fit check of dense_backward's instances
+# (render/kernels/dense.py::check_backward_fits), a query of the card.
+FIT_CHECK = "dense_backward_fit_check"
 REPLACES = {
     "dense_forward": "gftorf_tpu/render/pallas_composite.py:308",
     "dense_backward": "gftorf_tpu/render/pallas_composite.py:441",
     "flat_forward": "gftorf_tpu/render/flat_stream.py:102",
     "flat_backward": "gftorf_tpu/render/flat_stream.py:235",
+    FIT_CHECK: "gftorf_tpu/render/vmem_check.py:38",
 }
+# The device properties dense.blocks_per_sm_plain reads, and the checks
+# timed for the fit check's host time.
+FIT_PROPS = ("warp_size", "max_threads_per_block",
+             "max_threads_per_multi_processor",
+             "regs_per_multiprocessor", "shared_memory_per_block_optin",
+             "shared_memory_per_multiprocessor")
+FIT_REPS = 200
 # The Trainer's ceiling on max_per_tile (configs' max_per_tile_limit): past
 # it only the flat stream renders a scene exactly.
 MAX_PER_TILE_LIMIT = 16384
@@ -1944,7 +1971,8 @@ def reset_launches():
     from gftorf_tpu_torch.render.kernels import dense, flat
 
     for fn in (dense.composite_forward_cuda, dense.composite_backward_cuda,
-               flat.composite_forward_flat_cuda, flat.composite_backward_flat_cuda):
+               flat.composite_forward_flat_cuda, flat.composite_backward_flat_cuda,
+               dense.check_backward_fits):
         fn.launches = 0
 
 
@@ -1954,7 +1982,8 @@ def read_launches():
     return {"dense_forward": dense.composite_forward_cuda.launches,
             "dense_backward": dense.composite_backward_cuda.launches,
             "flat_forward": flat.composite_forward_flat_cuda.launches,
-            "flat_backward": flat.composite_backward_flat_cuda.launches}
+            "flat_backward": flat.composite_backward_flat_cuda.launches,
+            FIT_CHECK: dense.check_backward_fits.launches}
 
 
 def write_trainer_datasets(device, width=320, height=240, n_ftorf=16, n_torf=8):
@@ -2200,7 +2229,7 @@ def phase_trainer(device, width=320, height=240, n_ftorf=16, iters=260,
     reset_launches()
     with recorded(loop.Trainer, "_densify", device) as dens, \
             recorded(loop.Trainer, "_reset_opacity", device) as resets, \
-            recorded(loop.Trainer, "check_backward_launch", device) as check, \
+            recorded(loop.Trainer, "check_backward_fits", device) as check, \
             recorded(evaluate, "eval_frame", device) as evals_ms:
         t0 = time.perf_counter()
         tr, recs, evals = train_cli(
@@ -2217,7 +2246,7 @@ def phase_trainer(device, width=320, height=240, n_ftorf=16, iters=260,
         raise AssertionError(f"ftorf Trainer run: dense kernels not launched: "
                              f"{launches}")
     if device.type == "cuda" and len(check.ms) != 1:
-        raise AssertionError(f"the start-up launch check ran {len(check.ms)} times")
+        raise AssertionError(f"the start-up fit check ran {len(check.ms)} times")
     events = [it for it in range(1, iters + 1)
               if it > dens0 and it % dens_every == 0 and it < tr.opt.densify_until_iter]
     pts = {r["iteration"]: r["num_points"] for r in recs}
@@ -2244,8 +2273,8 @@ def phase_trainer(device, width=320, height=240, n_ftorf=16, iters=260,
     ev_frames = len(evals_ms.ms)
     log("trainer", f"ftorf full width (configs/ftorf.json, {n_ftorf} frames at "
         f"{width}x{height}): {iters} iterations in {wall:.1f} s; start-up "
-        f"launch check of dense_backward at L={tr.tile_cap_limit}: "
-        f"{'ok, ' + format(check.ms[0], '.2f') + ' ms' if check.ms else 'not on this device'}; "
+        f"fit check of dense_backward's instances {sorted(tr.backward_fits)}: "
+        f"{'ok, ' + format(check.ms[0], '.3f') + ' ms' if check.ms else 'not on this device'}; "
         f"num_points {pts[1]} -> {recs[-1]['num_points']} (changed at densify "
         f"events {changed} of {events}); {len(resets.ms)} opacity reset; "
         f"deform MLP stepped {deform_steps} times; evals at {warm} and {iters}: "
@@ -2276,7 +2305,7 @@ def phase_trainer(device, width=320, height=240, n_ftorf=16, iters=260,
             recorded(scene_mod, "read_scene", device) as reads, \
             recorded(scene_mod, "stack_frames", device) as stacks, \
             recorded(loop.Trainer, "_densify", device) as tdens, \
-            recorded(loop.Trainer, "check_backward_launch", device) as tcheck:
+            recorded(loop.Trainer, "check_backward_fits", device) as tcheck:
         tr, recs, evals = train_cli(
             device, cfg_torf, os.path.join(out, "torf"),
             "--source_path", data["torf"], "--total_num_views", n_torf,
@@ -2555,7 +2584,7 @@ def phase_render(device, iters=260, torf_iters=30):
     with recorded(render_sets, "render_frame", device) as frames_ms, \
             recorded(render_sets, "_write_frame", device) as write_ms, \
             recorded(render_sets, "_write_gif", device) as gif_ms, \
-            recorded(loop.Trainer, "check_backward_launch", device) as check:
+            recorded(loop.Trainer, "check_backward_fits", device) as check:
         t0 = time.perf_counter()
         base = render_cli(main, "--skip_train", "--proxy_pcd", *cuda_flags)
         wall = time.perf_counter() - t0
@@ -2570,7 +2599,8 @@ def phase_render(device, iters=260, torf_iters=30):
                              f"test and {n_proxy} proxy frames")
     if device.type == "cuda" and not (
             launches["dense_forward"] + launches["flat_forward"] == renders
-            and launches["dense_backward"] == len(check.ms) == 1
+            and launches["dense_backward"] == 0
+            and launches[FIT_CHECK] == len(check.ms) == 1
             and launches["flat_backward"] == 0):
         raise AssertionError(f"render launches {launches} for {renders} "
                              f"renders and {len(check.ms)} start-up checks")
@@ -2592,8 +2622,8 @@ def phase_render(device, iters=260, torf_iters=30):
     log("render", f"ftorf full width (the [trainer] model at iteration "
         f"{iters}): the CLI rendered {n_test} test frames and {n_proxy} proxy "
         f"frames ({renders} renders) in {wall:.1f} s, {len(want)} artifacts "
-        f"checked; kernel launches {launches} (dense_backward: the Trainer's "
-        f"start-up check); tile_overflow per frame at the loaded "
+        f"checked; kernel launches {launches} ({FIT_CHECK}: the Trainer's "
+        f"start-up check, which launches no kernel); tile_overflow per frame at the loaded "
         f"max_per_tile {cfg['max_per_tile']}: {overflow}; deepest tile per frame {[r['tile_max'] for r in records]}; "
         f"rendered at max_per_tile {sorted({r['max_per_tile'] for r in records})}, "
         f"flat_stream {sorted({r['flat_stream'] for r in records})}; dropped "
@@ -3269,7 +3299,7 @@ def phase_bench(device, worst, iters=BENCH_ITERS, warm=BENCH_WARM,
     from gftorf_tpu_torch import bench
     from gftorf_tpu_torch.render.kernels import dense
 
-    launches = dict.fromkeys(KERNELS, 0)
+    launches = dict.fromkeys(KERNELS + (FIT_CHECK,), 0)
     reset_launches()
     with capturing({"forward": (dense, "composite_forward"),
                     "backward": (dense, "composite_backward")}) as cap, \
@@ -3850,47 +3880,179 @@ def phase_timing(scenes, runs, flat_runs, worst, launches, render_launches,
                       + bench_launches[name]),
             max_abs_err=worst[name], ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
             bound_by=b_by, library_ms=None))
-    launch_check_timing(runs[0])
     torch.cuda.synchronize()
     log("timing", "ok")
     return kernels
 
 
-def launch_check_timing(run):
-    """Kernel 2 at the Trainer's start-up launch check
-    (``Trainer.check_backward_launch``, the counterpart of the TPU's
-    compile-only VMEM check): one 16x32 tile of ``MAX_PER_TILE_LIMIT``
-    all-zero rows, flow on, the ftorf step's dd gate; its time, its plain
-    version's and the bound of its work (every pixel evaluates every row:
-    no row's opacity reaches the alpha cutoff)."""
+def phase_fit_check(device, main_launches):
+    """Kernel 5, the Trainer's start-up fit check (module docstring, 13);
+    returns its entry of the ``kernels`` line, ``main_launches`` the
+    checks counted in the main-path phases."""
     import torch
 
+    from gftorf_tpu_torch import render_sets
     from gftorf_tpu_torch.render.kernels import dense
-    from gftorf_tpu_torch.render.settings import RasterConfig
 
-    need_dd = run.static_for(2101, True).config_tof.need_dd
-    cfg = RasterConfig(height=240, width=320, tile_h=16, tile_w=32,
-                       max_per_tile=MAX_PER_TILE_LIMIT, need_dd=need_dd,
-                       need_distribution=False)
-    L, pix, dev = cfg.max_per_tile, cfg.tile_pixels, run.device
-    zeros = lambda *s: torch.zeros(s, device=dev)  # noqa: E731
-    args = (zeros(1, L, dense.FEAT_COLS), zeros(1, pix, dense.BG_COLS),
-            zeros(1, pix, dense.OUT_COLS), zeros(1, pix, dense.OUT_COLS),
-            torch.full((1,), L, dtype=torch.int32, device=dev),
-            torch.zeros((1, 2), dtype=torch.int32, device=dev), cfg, True)
-    got = dense.composite_backward_cuda(*args)
-    ref = dense.composite_backward_plain(*args)
-    err, _ = compare_bwd(got, ref, 0, "launch check")
-    ms = time_ms(lambda: dense.composite_backward_cuda(*args), 10)
-    plain_ms = time_ms(lambda: dense.composite_backward_plain(*args), 2)
-    nbytes, ops = work_of(args[0], args[4], args[5], cfg, zeros(1, L),
-                          backward=True, has_flow=True)
-    b_ms, b_by, t_bytes, t_ops = bound(nbytes, ops)
-    log("timing", f"dense_backward at the launch check's shapes (T=1, "
-        f"PIX={pix}, L={L}, all-zero rows, need_dd={need_dd}): {ms:.4f} ms; "
-        f"plain {plain_ms:.3f} ms; bound {b_ms:.4f} ms ({b_by}: {nbytes} B -> "
-        f"{t_bytes:.4f} ms, {ops} fp32 ops -> {t_ops:.4f} ms); max_abs_err "
-        f"{err:.3g}")
+    props = torch.cuda.get_device_properties(device)
+    log("fit-check", f"{card_line()}; the device properties the plain model "
+        "reads: " + ", ".join(f"{k} {getattr(props, k)}" for k in FIT_PROPS))
+
+    # Every instance of the backward template at the tiles the main path
+    # runs (16x32 in the configs, 16x16 in the rasterizer bench): the
+    # card's query against the plain model.
+    worst = 0
+    for pix in (512, 256):
+        for need_dd in (False, True):
+            for has_flow in (True, False):
+                occ = dense.backward_occupancy(pix, need_dd, has_flow)
+                plain = dense.blocks_per_sm_plain(
+                    props, pix, occ["registers"], occ["shared_bytes"])
+                worst = max(worst, abs(occ["blocks_per_sm"] - plain))
+                log("fit-check", f"instance need_dd={need_dd}, has_flow="
+                    f"{has_flow} at {pix} pixels: {occ['blocks_per_sm']} "
+                    f"block(s) per SM (plain model {plain}), "
+                    f"{occ['registers']} registers, {occ['spill_bytes']} B "
+                    f"local, {occ['shared_bytes']} B shared")
+    if worst:
+        raise AssertionError(f"the occupancy query and its plain model differ "
+                             f"by up to {worst} blocks per SM")
+
+    # A Trainer start on the card (load_trained on each [trainer] model)
+    # checks the instances its steps launch and launches no kernel.
+    trainers = {}
+    for name in ("ftorf", "torf"):
+        reset_launches()
+        tr, _, _ = render_sets.load_trained(
+            os.path.join(TRAINER_DIR, "out", name), -1, device)
+        torch.cuda.synchronize(device)
+        n = read_launches()
+        if n[FIT_CHECK] != 1 or any(n[k] for k in KERNELS):
+            raise AssertionError(f"a {name} Trainer start launched {n}")
+        want = {(tr.dd_possible, True), (tr.dd_possible, False)}
+        if not want <= set(tr.backward_fits):
+            raise AssertionError(f"the {name} Trainer checked "
+                                 f"{sorted(tr.backward_fits)}, not {want}")
+        trainers[name] = tr
+        log("fit-check", f"{name} Trainer start (configs/{name}.json, "
+            f"{tr.cfg.tpu.tile_h}x{tr.cfg.tpu.tile_w} tiles, dd_possible "
+            f"{tr.dd_possible}): kernel launches {n}; " + "; ".join(
+                f"need_dd={dd}, has_flow={fl}: {o['blocks_per_sm']} block(s) "
+                f"per SM, {o['registers']} registers, {o['spill_bytes']} B "
+                f"local, {o['shared_bytes']} B shared"
+                for (dd, fl), o in tr.backward_fits.items()))
+
+    # Host time per check (the first call, which loads the library, is
+    # behind us), and the plain model's for the same instances.
+    tr = trainers["ftorf"]
+    t = tr.cfg.tpu
+    pix = t.tile_h * t.tile_w
+    attrs = {k: (o["registers"], o["shared_bytes"])
+             for k, o in tr.backward_fits.items()}
+
+    def check():
+        return dense.check_backward_fits(t.tile_h, t.tile_w, tr.dd_possible,
+                                         device)
+
+    def plain():
+        p = torch.cuda.get_device_properties(device)
+        return {k: dense.blocks_per_sm_plain(p, pix, r, b)
+                for k, (r, b) in attrs.items()}
+
+    def host_ms(fn):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(FIT_REPS):
+            fn()
+        return 1e3 * (time.perf_counter() - t0) / FIT_REPS
+
+    ms, plain_ms = host_ms(check), host_ms(plain)
+    if plain() != {k: o["blocks_per_sm"] for k, o in check().items()}:
+        raise AssertionError("the check and the plain model disagree")
+
+    # No device work: under the profiler, in a fresh process (this one's
+    # saw no device operation at all after the phases before it).
+    proc = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.fit_check_device_ops()"],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
+        text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"the fit check's profile failed:\n{proc.stderr[-3000:]}")
+    device_ops = json.loads(proc.stdout.strip().splitlines()[-1])
+    if device_ops[0] and device_ops[1] != device_ops[0]:
+        raise AssertionError(f"device operations: {device_ops[0]} in the "
+                             f"marker's window, {device_ops[1]} with 20 checks")
+    seen = (f"{device_ops[0]} device operations with and without 20 checks, "
+            "the marker's" if device_ops[0] else
+            "not measured: the profiler saw no device operation")
+
+    # Refusals: a tile past the kernel's block, a query that reports no
+    # block, and one that returns a CUDA error; each stub undone after.
+    lib = dense._lib_backward()
+    query = lib.gftorf_dense_backward_occupancy
+
+    def no_block(p, dd, fl, info):
+        err = query(p, dd, fl, info)
+        info[0] = 0
+        return err
+
+    refusals = []
+    for what, stub, fn in (
+            ("32x32 tiles", None,
+             lambda: dense.check_backward_fits(32, 32, tr.dd_possible, device)),
+            ("a query reporting 0 blocks", no_block, check),
+            ("a query returning cudaError 2", lambda p, dd, fl, info: 2, check)):
+        if stub is not None:
+            lib.gftorf_dense_backward_occupancy = stub
+        try:
+            fn()
+        except RuntimeError as e:
+            refusals.append(f"{what}: {e}")
+        else:
+            raise AssertionError(f"the fit check passed {what}")
+        finally:
+            lib.gftorf_dense_backward_occupancy = query
+        check()
+    for line in refusals:
+        log("fit-check", f"refused {line}")
+    if main_launches < 1:
+        raise AssertionError("the fit check ran no time on the main path")
+    log("fit-check", f"check of {len(attrs)} instances: {ms:.6f} ms a call "
+        f"on the host (mean of {FIT_REPS}), plain model {plain_ms:.6f} ms; no "
+        f"device work (bound 0: 0 bytes, 0 operations; {seen}); query = plain "
+        f"model in every instance; {main_launches} checks on the main path")
+    log("fit-check", "ok")
+    return dict(name=FIT_CHECK, route="cuda",
+                source="gftorf_tpu_torch/csrc/dense_backward.cu",
+                replaces=REPLACES[FIT_CHECK], launches=main_launches,
+                max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=0.0,
+                bound_by="bytes", library_ms=None)
+
+
+def fit_check_device_ops():
+    """Print, as JSON, the device operations torch.profiler sees in a window
+    that runs one marker (a fill and an add) without and with 20 fit
+    checks at 16x32 tiles: the [fit-check] phase runs it in a fresh
+    process."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gftorf_tpu_torch.render.kernels import dense
+
+    device = torch.device("cuda")
+    dense.check_backward_fits(16, 32, False, device)  # loads the library
+    ops = []
+    for n in (0, 20):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.ones(1, device=device).add_(1)
+            for _ in range(n):
+                dense.check_backward_fits(16, 32, False, device)
+            torch.cuda.synchronize(device)
+        events = trace_events(prof, os.path.join(
+            ROOT, "build", "profile", f"fit_check_{n}.json"))
+        ops.append(len(device_busy(events)[2]))
+    print(json.dumps(ops), flush=True)
 
 
 # ------------------------------------------------------- --profile only
@@ -4117,6 +4279,8 @@ def main():
     kernels = phase_timing(scenes, runs, flat_runs, worst, launches,
                            render_launches, sharded_launches, trainer_launches,
                            bench_launches)
+    kernels.append(phase_fit_check(device, sum(
+        n[FIT_CHECK] for n in (trainer_launches, render_launches, bench_launches))))
     if "--profile" in sys.argv[1:]:
         phase_profile(scenes + flat_scenes)
         phase_profile_train(runs[0])

@@ -218,10 +218,11 @@ class TpuParams:
     #   "truncate" — keep the dense kernels and drop the deepest
     #                instances with a one-time warning (explicit opt-in).
     tile_overflow_fallback: str = "flat"
-    # Verify at Trainer start-up that the dense backward kernel launches
-    # at max_per_tile_limit depth, with the step's depth-distortion gate
-    # and flow on (CUDA only): the Trainer launches
-    # composite_backward_cuda once and raises if the card refuses it. The
+    # Verify at Trainer start-up that the card would launch every instance
+    # of the dense backward kernel the step launches at the tile shape
+    # (CUDA only): the Trainer asks the card for each instance's blocks
+    # per SM and raises if it would refuse one
+    # (render/kernels/dense.py::check_backward_fits); no kernel runs. The
     # JAX package's check is a compile of its Pallas kernel at the
     # VMEM-calibrated ceiling (render/vmem_check.py); the Hopper kernels
     # stage instances through shared memory in batches and have no

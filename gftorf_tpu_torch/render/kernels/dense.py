@@ -9,6 +9,12 @@ notes in those files for their design and bound):
  - ``_backward_kernel`` (``composite_backward_pallas``) ->
    ``csrc/dense_backward.cu``, wrapper ``composite_backward_cuda``.
 
+The TPU's third kernel of this layout, ``render/vmem_check.py::
+try_compile_bwd`` (a compile of the backward that checks it fits scoped
+VMEM), becomes ``check_backward_fits``: the card's occupancy query for
+each instance of the backward that a step launches, beside its plain
+version ``blocks_per_sm_plain``.
+
 ``composite_forward`` and ``composite_backward`` dispatch on the tensors'
 device: a CUDA tensor goes through the kernel (or the call raises), a CPU
 tensor through ``composite_forward_plain`` / ``composite_backward_plain``,
@@ -43,7 +49,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -588,13 +594,23 @@ def _lib_backward() -> ctypes.CDLL:
 BWD_MAX_PIXELS = 512
 
 
+def backward_pixels_error(pix: int) -> Optional[str]:
+    """Why the backward kernels cannot run a tile of ``pix`` pixels, or
+    None: they run one thread per pixel, up to their
+    ``__launch_bounds__`` of BWD_MAX_PIXELS threads, in whole warps."""
+    if pix > BWD_MAX_PIXELS or pix % 32 != 0:
+        return (f"tile_pixels={pix}: the backward kernel runs one thread per "
+                f"pixel, so it must be a multiple of 32 up to {BWD_MAX_PIXELS}")
+    return None
+
+
 def composite_backward_cuda(feat_tl, bg_tiles, out_res, g, counts, origins,
                             config: RasterConfig, has_flow: bool):
     """Launch csrc/dense_backward.cu on the tensors' card; adds one to
     ``composite_backward_cuda.launches`` per launch. A launch the card
-    refuses (too many threads, registers or shared memory: the Hopper
-    counterpart of the JAX package's VMEM compile check,
-    render/vmem_check.py) raises."""
+    refuses (too many threads, registers or shared memory) raises; the
+    Trainer asks the card at start-up whether it would
+    (``check_backward_fits``)."""
     T, L, C = feat_tl.shape
     pix = config.tile_pixels
     dev = feat_tl.device
@@ -602,10 +618,9 @@ def composite_backward_cuda(feat_tl, bg_tiles, out_res, g, counts, origins,
         raise ValueError(f"the CUDA kernel takes CUDA tensors, got {dev}")
     if C != FEAT_COLS:
         raise ValueError(f"feat_tl has {C} columns, the kernel takes {FEAT_COLS}")
-    if pix > BWD_MAX_PIXELS or pix % 32 != 0:
-        raise ValueError(f"tile_pixels={pix}: the backward kernel runs one "
-                         "thread per pixel, so it must be a multiple of 32 "
-                         f"up to {BWD_MAX_PIXELS}")
+    reason = backward_pixels_error(pix)
+    if reason:
+        raise ValueError(reason)
     expect = {
         "feat_tl": (feat_tl, torch.float32, (T, L, FEAT_COLS)),
         "bg_tiles": (bg_tiles, torch.float32, (T, pix, BG_COLS)),
@@ -636,6 +651,115 @@ def composite_backward_cuda(feat_tl, bg_tiles, out_res, g, counts, origins,
 
 
 composite_backward_cuda.launches = 0
+
+
+def check_backward_fits(tile_h: int, tile_w: int, need_dd: bool,
+                        device) -> dict:
+    """Raise unless the card can launch every instance of
+    csrc/dense_backward.cu that a training step launches at ``tile_h`` x
+    ``tile_w`` tiles: ``need_dd`` (the ToF render's gate; the colour
+    render's is always off) and False, each with ``has_flow`` True and
+    False. The Hopper counterpart of the TPU kernel
+    ``gftorf_tpu/render/vmem_check.py::try_compile_bwd``, which compiles
+    the Pallas backward at the Trainer's tile depth to see that it fits
+    scoped VMEM.
+
+    No device work. Per instance, ``backward_occupancy`` sets the
+    dynamic-shared-memory attribute as a launch does
+    (``composite_tile.cuh::kernel_prepare``) and asks the card for its
+    blocks per SM. The card refuses a launch for too many threads, too
+    many registers or too much shared memory: a tile that the kernel's
+    block cannot hold (``backward_pixels_error``), a CUDA error from the
+    query, or fewer than one block per SM raises a RuntimeError naming the
+    instance, the tile and what the card reported. Spilled registers are
+    slow, not refused: they are only reported.
+
+    The tile depth L is not an argument. The kernel's shared memory is
+    ``sizeof(BwdShared)`` (composite_tile.cuh), whatever L: rows are
+    staged in batches of 256. Its offsets into the (T, L, 24) blocks are
+    ``size_t``. So no depth makes the card refuse a launch that it takes
+    at a shallow one; chip_smoke.py's deep-tile phase runs the kernel on
+    a tile 21,535 rows deep, past the Trainer's 16,384. For the same
+    reason the JAX package's calibrated depth table
+    (``pallas_composite.py::_BWD_CAP_CALIBRATED``) has no counterpart, and
+    the Trainer clamps no ``max_per_tile_limit`` to one.
+
+    Returns ``{(need_dd, has_flow): occupancy}``, each ``backward_occupancy``'s
+    report; adds one to ``check_backward_fits.launches`` per check that
+    passes."""
+    if torch.device(device).type != "cuda":
+        raise ValueError(f"the fit check queries a CUDA card, got {device}")
+    tile = f"{tile_h}x{tile_w} tiles"
+    pix = tile_h * tile_w
+    reason = backward_pixels_error(pix)
+    if reason:
+        raise RuntimeError(f"the dense backward kernel cannot run {tile}: {reason}")
+    fits = {}
+    with torch.cuda.device(device):
+        for instance in dict.fromkeys((need_dd, False)):
+            for has_flow in (True, False):
+                what = (f"dense backward instance need_dd={instance}, "
+                        f"has_flow={has_flow} at {tile}")
+                try:
+                    occ = backward_occupancy(pix, instance, has_flow)
+                except RuntimeError as e:
+                    raise RuntimeError(f"{what}: {e}") from e
+                if occ["blocks_per_sm"] < 1:
+                    raise RuntimeError(
+                        f"{what}: the card fits {occ['blocks_per_sm']} blocks "
+                        f"of {pix} threads per SM ({occ['registers']} "
+                        f"registers a thread, {occ['shared_bytes']} B of "
+                        "shared memory a block), so it refuses the launch")
+                fits[(instance, has_flow)] = occ
+    check_backward_fits.launches += 1
+    return fits
+
+
+check_backward_fits.launches = 0
+
+
+# CUDA's occupancy rules for sm_90 that the device properties do not carry
+# (the CUDA toolkit's cuda_occupancy.h).
+SM90_MAX_BLOCKS_PER_SM = 32
+SM90_MAX_REGS_PER_THREAD = 255
+SM90_REGS_PER_BLOCK = 65536
+SM90_REG_UNIT = 256  # registers are allocated to a warp in units of 256
+SM90_SUB_PARTITIONS = 4  # each holds a quarter of the SM's registers and warps
+SM90_SMEM_UNIT = 128  # shared memory is allocated to a block in 128 B units
+SM90_SMEM_RESERVED = 1024  # and 1 KB more of it is reserved in every block
+
+
+def blocks_per_sm_plain(props, pix: int, registers: int,
+                        shared_bytes: int) -> int:
+    """Blocks of ``pix`` threads that one SM holds at once, by CUDA's
+    occupancy rules for sm_90, for a kernel of ``registers`` a thread and
+    ``shared_bytes`` of shared memory a block (the kernels have no static
+    shared memory): the plain version of the card's own query in
+    ``check_backward_fits``. ``props`` has the fields of
+    ``torch.cuda.get_device_properties`` that it reads. 0 means the card
+    refuses a launch."""
+    if pix > props.max_threads_per_block:
+        return 0
+    warp = props.warp_size
+    warps = -(-pix // warp)
+    by_threads = props.max_threads_per_multi_processor // (warps * warp)
+    per_warp = -(-registers * warp // SM90_REG_UNIT) * SM90_REG_UNIT
+    # The card checks a launch with the block's warps rounded up to the
+    # sub-partitions, as if it took registers in all of them.
+    held = per_warp * (-(-warps // SM90_SUB_PARTITIONS) * SM90_SUB_PARTITIONS)
+    if registers > SM90_MAX_REGS_PER_THREAD or held > SM90_REGS_PER_BLOCK:
+        by_regs = 0
+    elif per_warp == 0:
+        by_regs = SM90_MAX_BLOCKS_PER_SM
+    else:
+        per_part = props.regs_per_multiprocessor // SM90_SUB_PARTITIONS
+        by_regs = (per_part // per_warp) * SM90_SUB_PARTITIONS // warps
+    if shared_bytes > props.shared_memory_per_block_optin:
+        by_shared = 0
+    else:
+        block = -(-(shared_bytes + SM90_SMEM_RESERVED) // SM90_SMEM_UNIT) * SM90_SMEM_UNIT
+        by_shared = props.shared_memory_per_multiprocessor // block
+    return min(SM90_MAX_BLOCKS_PER_SM, by_threads, by_regs, by_shared)
 
 
 class DenseComposite(torch.autograd.Function):

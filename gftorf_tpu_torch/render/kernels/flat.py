@@ -39,7 +39,6 @@ import torch
 from gftorf_tpu_torch.render.kernels import dense
 from gftorf_tpu_torch.render.kernels.dense import (
     BG_COLS,
-    BWD_MAX_PIXELS,
     FEAT_COLS,
     OUT_COLS,
     TileOutputs,
@@ -259,12 +258,10 @@ def composite_backward_flat_cuda(feat_fl, bg_tiles, out_res, g, tile_start,
     than 512 pixels are refused, as the TPU kernel refuses them
     (flat_stream.py:471-483)."""
     pix = config.tile_pixels
-    if pix > BWD_MAX_PIXELS or pix % 32 != 0:
-        raise ValueError(
-            f"tile_pixels={pix}: the flat-stream backward kernel runs one "
-            f"thread per pixel, so it must be a multiple of 32 up to "
-            f"{BWD_MAX_PIXELS} (e.g. 16x32 tiles); forward-only flat renders "
-            "are unaffected")
+    reason = dense.backward_pixels_error(pix)
+    if reason:
+        raise ValueError(f"flat stream: {reason} (e.g. 16x32 tiles); "
+                         "forward-only flat renders are unaffected")
     K, T, dev = _check_stream(feat_fl, bg_tiles, tile_start, tile_count,
                               origins, pix, (("out_res", out_res), ("g", g)))
     feat_fl = dense.aligned16(feat_fl)

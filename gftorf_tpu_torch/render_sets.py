@@ -67,8 +67,8 @@ def _latest_iteration(model_path: str) -> int:
 def load_trained(model_path: str, iteration: int = -1, device=None):
     """Rebuild a Trainer in inference mode from saved artifacts (either
     package's); returns (trainer, cfg, iteration). ``device=None`` means
-    the CUDA card, where the Trainer's start-up launch check of the dense
-    backward kernel runs once."""
+    the CUDA card, where the Trainer's start-up fit check of the dense
+    backward kernel runs once (and launches nothing)."""
     dev = resolve_device(device)
     cfg = Config.from_json(os.path.join(model_path, "cfg_args_full.json"))
     cfg.model.model_path = model_path

@@ -194,8 +194,9 @@ class Trainer:
                                   and cfg.tpu.tile_overflow_fallback == "flat")
         self.dd_possible = (opt.lambda_dd != 0.0
                             and opt.dd_loss_iter_end > opt.dd_loss_iter_start + 1)
+        self.backward_fits: dict = {}
         if self.device.type == "cuda" and cfg.tpu.check_vmem_cap:
-            self.check_backward_launch()
+            self.check_backward_fits()
         self._tile_limit_warned = False
         self.dup_factor = cfg.tpu.dup_factor
         self.dup_factor_limit = max(self.dup_factor, cfg.tpu.dup_factor_limit)
@@ -221,26 +222,18 @@ class Trainer:
         self._update_deform_bucket()
 
     # ------------------------------------------------------------------
-    def check_backward_launch(self) -> None:
-        """Launch the dense backward kernel once at ``max_per_tile_limit``
-        depth, with the step's depth-distortion gate and flow on; raises if
-        the card refuses the launch (the counterpart of the JAX Trainer's
-        ``check_bwd_cap``, render/vmem_check.py)."""
+    def check_backward_fits(self) -> None:
+        """Raise unless the card launches every instance of the dense
+        backward kernel that this Trainer's steps launch
+        (``render/kernels/dense.py::check_backward_fits``, the counterpart
+        of the JAX Trainer's ``check_bwd_cap``, render/vmem_check.py); keep
+        each instance's occupancy, registers and spill bytes in
+        ``backward_fits``. No kernel runs."""
         from gftorf_tpu_torch.render.kernels import dense
 
-        h, w = self.scene.tof_size
         t = self.cfg.tpu
-        cfg = RasterConfig(height=h, width=w, tile_h=t.tile_h, tile_w=t.tile_w,
-                           max_per_tile=self.tile_cap_limit,
-                           need_dd=self.dd_possible, need_distribution=False)
-        L, pix, dev = cfg.max_per_tile, cfg.tile_pixels, self.device
-        zeros = lambda *s: torch.zeros(s, device=dev)  # noqa: E731
-        dense.composite_backward_cuda(
-            zeros(1, L, dense.FEAT_COLS), zeros(1, pix, dense.BG_COLS),
-            zeros(1, pix, dense.OUT_COLS), zeros(1, pix, dense.OUT_COLS),
-            torch.full((1,), L, dtype=torch.int32, device=dev),
-            torch.zeros((1, 2), dtype=torch.int32, device=dev), cfg, True)
-        torch.cuda.synchronize(dev)
+        self.backward_fits = dense.check_backward_fits(
+            t.tile_h, t.tile_w, self.dd_possible, self.device)
 
     def barrier(self) -> None:
         """Wait for every rank of the mesh (nothing on one device)."""
