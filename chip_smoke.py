@@ -127,6 +127,31 @@ Phases, each printing lines tagged with its name and raising on failure:
             evaluation frame beside the card. ``--drift`` adds the verify
             recipe without random backgrounds on the card and on the CPU,
             mae_d_tof and psnr_p side by side at each evaluation.
+   events   the Trainer's densify statistics and decisions, card against
+            CPU: from the ftorf run's checkpoint at 260 (full width), a
+            Trainer on each device with random backgrounds off, the same
+            camera picks and one split draw made on the CPU, steps in
+            lockstep for as many iterations as fit in 60 s of CPU steps,
+            the last one densifying. Before each step the card's Trainer
+            takes the CPU's Gaussians, Adam moments and deform MLP and
+            keeps its own densify statistics, and at the event it decides
+            on its statistics and the CPU's Gaussians after the step: Adam
+            steps an element whose gradient is rounding noise by up to its
+            learning rate in the noise's direction, so free-running states
+            part by more than rounding after one step (run free, the
+            second step counted 6 pixels of two Gaussians on one device
+            only, away from every cutoff). Each step's per-Gaussian
+            touched-pixel counts (what ``denom`` adds) must agree but
+            where the
+            Gaussian's screen radius differs or where every pixel counted
+            on one device only lies at a cutoff (the plain formula on each
+            device's captured compositor inputs: alpha within 1e-4 of
+            1/255, or the transmittance within 1e-4 of T_STOP). At the
+            event it prints each accumulator's largest relative difference
+            and the decisions that differ, each with its rules' margins and
+            bands (xyz_grad_accum 1e-2 of itself plus of the threshold's
+            accumulator; raw opacity and log-scale 1e-3), and fails where a
+            decision differs with every rule deciding it outside its band.
 
 9. render  the render CLI (gftorf_tpu_torch.render.__main__.main in this
             process) on the [trainer] phase's saved models, copied under
@@ -2443,6 +2468,340 @@ def phase_trainer_drift(device, source):
                 f"{p_a!r} cpu {p_b!r} (diff {p_a - p_b:.4g})")
 
 
+# ---------------------------------------------------------------- events
+
+EVENTS_DIR = os.path.join(ROOT, "build", "events")
+# Seconds of CPU steps before the densify event, and their most.
+EVENTS_BUDGET_S = 60.0
+EVENTS_MAX_STEPS = 24
+# Card against CPU at a densify event: what a decision's input may differ
+# by (the accumulator: of itself plus the threshold's accumulator; the raw
+# opacity, a logit, and the largest log-scale: absolute) before a decision
+# that differs counts as a fault.
+EVENT_ACCUM_RTOL = 1e-2
+EVENT_PARAM_ATOL = 1e-3
+# A pixel at a cutoff: alpha within this (relative) of 1/255, or the
+# transmittance after the lane within this of T_STOP.
+CUTOFF_RTOL = 1e-4
+
+
+class capture_composite_inputs:
+    """Keep, on the CPU, what each ``rasterize`` call in the ``with`` block
+    hands the dense compositor: the gathered rows, their Gaussian ids, the
+    tiles' counts and origins, the config and each Gaussian's radius."""
+
+    def __enter__(self):
+        import importlib
+
+        rz = importlib.import_module("gftorf_tpu_torch.render.rasterize")
+        self.mod, self.real, self.calls = rz, rz.composite_inputs, []
+
+        def wrapped(*a, **k):
+            ci = self.real(*a, **k)
+            config = a[11] if len(a) > 11 else k["config"]
+            host = lambda t: t.detach().cpu()  # noqa: E731
+            self.calls.append(dict(
+                feat=host(ci.feat), gid=host(ci.binning.gauss_id),
+                counts=host(ci.binning.tile_count), origins=host(ci.origins),
+                radius=host(ci.pre.radius), config=config))
+            return ci
+
+        rz.composite_inputs = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.composite_inputs = self.real
+
+
+def tile_pixel_maps(call, t):
+    """One dense tile of a captured call, in the plain version's float32
+    formula (render/kernels/dense.py::composite_forward_plain): for each
+    (pixel, lane) whether the lane's Gaussian counts the pixel, and whether
+    the pixel lies at a cutoff (alpha within CUTOFF_RTOL of 1/255, or the
+    transmittance after the lane within it of T_STOP)."""
+    import torch
+
+    from gftorf_tpu_torch.render.composite import ALPHA_EPS, ALPHA_MAX, T_STOP
+
+    cfg = call["config"]
+    n = int(call["counts"][t])
+    f = call["feat"][t, :n]
+    pid = torch.arange(cfg.tile_pixels)
+    px = call["origins"][t, 0].float() + (pid % cfg.tile_w).float()
+    py = call["origins"][t, 1].float() + (pid // cfg.tile_w).float()
+    inside = ((px < cfg.width) & (py < cfg.height))[:, None]
+    ddx = f[None, :, 0] - px[:, None]
+    ddy = f[None, :, 1] - py[:, None]
+    power = (-0.5 * (f[None, :, 2] * ddx * ddx + f[None, :, 4] * ddy * ddy)
+             - f[None, :, 3] * ddx * ddy)
+    alpha = torch.clamp(f[None, :, 5] * torch.exp(torch.clamp(power, max=0.0)),
+                        max=ALPHA_MAX)
+    valid = (power <= 0.0) & (alpha >= ALPHA_EPS) & inside
+    t_incl = torch.cumprod(1.0 - torch.where(valid, alpha, 0.0), dim=-1)
+    counts = valid & (t_incl >= T_STOP)
+    near = inside & (((alpha - ALPHA_EPS).abs() <= CUTOFF_RTOL * ALPHA_EPS)
+                     | ((t_incl - T_STOP).abs() <= CUTOFF_RTOL * T_STOP))
+    return counts, near
+
+
+def explain_pixel_flips(card, cpu, d_pixels):
+    """Why the card's and the CPU's touched-pixel counts of one step differ
+    (``d_pixels``: card minus CPU, per Gaussian): for each Gaussian that
+    differs, either its screen radius differs (its tiles differ), or every
+    pixel that one device's inputs count and the other's do not, and at
+    least as many pixels as the counts differ by, lie at a cutoff. Returns
+    (Gaussians explained by the radius, pixels at a cutoff, Gaussians
+    left unexplained with their details)."""
+    import torch
+
+    by_radius, at_cutoff, unexplained = 0, 0, []
+    maps_of = {}
+
+    def maps(k, c, t):
+        if (k, t) not in maps_of:
+            maps_of[k, t] = tile_pixel_maps(c, t)
+        return maps_of[k, t]
+
+    for g in torch.nonzero(d_pixels).flatten().tolist():
+        if card["radius"][g] != cpu["radius"][g]:
+            by_radius += 1
+            continue
+        tiles = [torch.nonzero((c["gid"] == g).any(-1)).flatten().tolist()
+                 for c in (card, cpu)]
+        if tiles[0] != tiles[1]:
+            unexplained.append((g, "tiles differ at one radius", tiles))
+            continue
+        flipped = near = 0
+        for t in tiles[0]:
+            per = []
+            for k, c in enumerate((card, cpu)):
+                lane = int(torch.nonzero(c["gid"][t] == g)[0])
+                counts, at = maps(k, c, t)
+                per.append((counts[:, lane], at[:, lane]))
+            (c_a, n_a), (c_b, n_b) = per
+            differ = c_a != c_b
+            if (differ & ~(n_a | n_b)).any():
+                unexplained.append((g, f"tile {t}: a pixel flips away from "
+                                       "every cutoff", int(differ.sum())))
+            flipped += int(differ.sum())
+            near += int((n_a | n_b).sum())
+        if abs(float(d_pixels[g])) > near:
+            unexplained.append((g, f"counts differ by {float(d_pixels[g])} "
+                                   f"with {near} pixels at a cutoff", flipped))
+        at_cutoff += near
+    return by_radius, at_cutoff, unexplained
+
+
+def event_differences(card, cpu, opt, extent):
+    """The decisions of one densify try that differ between the card and
+    the CPU (chip_parity20k.densify_inputs' arrays), each with its rules'
+    margins to their thresholds (the CPU's inputs, in the units each rule
+    reads) and bands: a list of (Gaussian, decision, [(rule, margin,
+    band)], fault), a fault where no rule deciding it lies in its band."""
+    import numpy as np
+
+    f32 = np.float32
+    thr = opt.densify_grad_threshold
+    a, d = cpu["xyz_grad_accum"], cpu["denom"]
+    grad = (np.abs(a - thr * d),
+            EVENT_ACCUM_RTOL * (np.abs(a) + thr * d)
+            + thr * np.abs(card["denom"] - d))
+
+    def raw(key, at):
+        return np.abs(cpu[key] - at), np.full(a.shape, EVENT_PARAM_ATOL, f32)
+
+    scale = raw("max_scaling", np.log(f32(opt.percent_dense) * f32(extent)))
+    prune_rules = [("opacity", raw("opacity", np.log(
+        f32(opt.min_opacity) / (1 - f32(opt.min_opacity)))))]
+    if cpu["size_thr"] > 0:
+        prune_rules += [
+            ("size>0.05", raw("max_scaling", np.log(f32(0.05) * f32(extent)))),
+            ("size<0.001", raw("max_scaling", np.log(f32(0.001) * f32(extent))))]
+    high = [x["clone"] | x["split"] for x in (card, cpu)]
+    pruned = [x["prune"] & ~x["split"] for x in (card, cpu)]
+    decisions = [
+        ("densify", high[0] != high[1], [("grad", grad)]),
+        ("clone/split", high[0] & high[1] & (card["clone"] != cpu["clone"]),
+         [("scale", scale)]),
+        ("prune", pruned[0] != pruned[1], prune_rules)]
+    out = []
+    for name, differ, rules in decisions:
+        for g in np.nonzero(differ)[0]:
+            ms = [(r, float(m[g]), float(b[g])) for r, (m, b) in rules]
+            out.append((int(g), name, ms, all(m > b for _, m, b in ms)))
+    return out
+
+
+def phase_events(device, data, model, it0, n_ftorf=16, budget_s=EVENTS_BUDGET_S,
+                 max_steps=EVENTS_MAX_STEPS):
+    """The Trainer's densify statistics and decisions on the card against
+    the CPU (module docstring, ``events``), from the [trainer] ftorf run's
+    checkpoint at ``it0``."""
+    import random
+
+    import numpy as np
+    import torch
+
+    import chip_parity20k as cp
+    from gftorf_tpu_torch.config import Config
+    from gftorf_tpu_torch.train.loop import Trainer
+
+    cpu = torch.device("cpu")
+    over = dict(source_path=data, model_path=os.path.join(EVENTS_DIR, "model"),
+                total_num_views=n_ftorf, warm_up=100, opacity_reset_interval=250,
+                densify_from_iter=0, densification_interval=10 ** 9,
+                iterations=it0 + 10 ** 4, random_bg_color=False, metrics_lag=0)
+    trainers, rng = {}, {}
+    for name, dev in (("cpu", cpu), ("card", device)):
+        tr = Trainer(Config.from_json(os.path.join(ROOT, "configs", "ftorf.json"),
+                                      over), startup_artifacts=False, device=dev)
+        tr.load_checkpoint(os.path.join(model, f"chkpnt{it0}.npz"))
+        trainers[name], rng[name] = tr, random.getstate()
+    noise = {}
+
+    def noise_for(it, cap):
+        if (it, cap) not in noise:
+            gen = torch.Generator().manual_seed(SEED + 40 + it)
+            noise[it, cap] = torch.randn((2, cap, 3), generator=gen)
+        return noise[it, cap]
+
+    def to(tree, dev):
+        if torch.is_tensor(tree):
+            return tree.to(dev)
+        if isinstance(tree, dict):
+            return {k: to(v, dev) for k, v in tree.items()}
+        return type(tree)(*(to(x, dev) for x in tree))
+
+    def step_both():
+        """One iteration on each device (the CPU's first), each with its
+        own camera-pick state, the card's from the CPU's Gaussians and
+        deform MLP with its own densify statistics; at a densify the card
+        decides on its statistics and the CPU's Gaussians after the step.
+        Returns per device (seconds, captured calls, pixels added, densify
+        tries)."""
+        from gftorf_tpu_torch.train import loop
+
+        src, dst = trainers["cpu"], trainers["card"]
+        dst.model = to(src.model, dst.device)._replace(aux=dst.model.aux)
+        dst.deform = to(src.deform, dst.device)
+        dst.deform_adam = to(src.deform_adam, dst.device)
+        seen = []
+        out = {}
+        for name, tr in trainers.items():
+            denom0 = tr.model.aux.denom.clone()
+            random.setstate(rng[name])
+            draw = lambda it, cap, d=tr.device: noise_for(it, cap).to(d)  # noqa: E731
+            t0 = time.perf_counter()
+            with capture_composite_inputs() as cap, \
+                    cp.record_events(tr, draw) as tries:
+                rec = loop.densify_and_prune
+                if name == "cpu":
+                    def densify(state, *a):
+                        seen.append(state)
+                        return rec(state, *a)
+                else:
+                    def densify(state, *a):
+                        cpu_state = to(seen[-1], tr.device)
+                        return rec(cpu_state._replace(aux=state.aux), *a)
+                loop.densify_and_prune = densify
+                try:
+                    tr.step()
+                finally:
+                    loop.densify_and_prune = rec
+                if tr.device.type == "cuda":
+                    torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            rng[name] = random.getstate()
+            denom1 = (torch.as_tensor(tries[0]["denom"]) if tries
+                      else tr.model.aux.denom.cpu())
+            out[name] = (secs, cap.calls, denom1 - denom0.cpu(), tries)
+        return out
+
+    t_start = time.perf_counter()
+    steps, cpu_steps, explained, by_radius, flips_total = [], [], 0, 0, 0
+    while True:
+        last = len(steps) + 1 >= max_steps or bool(
+            steps and time.perf_counter() - t_start + steps[-1] > budget_s)
+        if last:
+            for tr in trainers.values():
+                tr.opt.densification_interval = tr.iteration + 1
+        res = step_both()
+        (s_card, calls_card, px_card, tries_card) = res["card"]
+        (s_cpu, calls_cpu, px_cpu, tries_cpu) = res["cpu"]
+        if not (calls_card and calls_cpu):
+            raise AssertionError("[events] a step rendered nothing")
+        # A replayed step (capacity growth) renders again: its last render
+        # is the one whose statistics stay.
+        d_px = px_card - px_cpu
+        radius, at_cut, bad = explain_pixel_flips(calls_card[-1], calls_cpu[-1],
+                                                  d_px)
+        if bad:
+            raise AssertionError(f"[events] iteration {trainers['cpu'].iteration}: "
+                                 f"pixel counts differ away from the cutoffs: {bad[:5]}")
+        explained += int((d_px != 0).sum())
+        by_radius += radius
+        flips_total += int(d_px.abs().sum())
+        steps.append(s_cpu + s_card)
+        cpu_steps.append(s_cpu)
+        if last:
+            break
+    tr_cpu = trainers["cpu"]
+    if not (tries_card and tries_cpu) or len(tries_card) != len(tries_cpu):
+        raise AssertionError(f"[events] densify tries: card {len(tries_card)}, "
+                             f"cpu {len(tries_cpu)}")
+    rc = tr_cpu._raster_config(True)
+    log("events", f"from the [trainer] ftorf checkpoint at {it0} "
+        f"({int(tries_cpu[0]['alive'].sum())} Gaussians at the event, "
+        f"D={tr_cpu.deform_cfg.depth} W={tr_cpu.deform_cfg.width}, "
+        f"{rc.width}x{rc.height} in {rc.tile_h}x{rc.tile_w} tiles, "
+        f"max_per_tile {rc.max_per_tile}), random backgrounds "
+        f"off, the card's Trainer given the CPU's Gaussians and deform MLP "
+        f"before each step (its own statistics kept): {len(steps)} "
+        f"iterations on each device in {sum(steps):.1f} s "
+        f"(the last, {tr_cpu.iteration}, densifies; the CPU's step "
+        f"{statistics.median(cpu_steps):.2f} s, the card's "
+        f"{statistics.median([a - b for a, b in zip(steps, cpu_steps)]):.3f} s, "
+        f"medians), split noise drawn once on the CPU")
+    log("events", f"per-step touched-pixel counts: {explained} (Gaussian, step) "
+        f"pairs differ, by {flips_total} pixels in all: {by_radius} where the "
+        f"Gaussian's screen radius differs (radius rounding), the rest at "
+        f"pixels whose alpha lies within {CUTOFF_RTOL} of 1/255 or whose "
+        f"transmittance lies within it of T_STOP")
+    extent = tr_cpu.scene.scene_extent
+    for i, (a, b) in enumerate(zip(tries_card, tries_cpu)):
+        if not np.array_equal(a["alive"], b["alive"]) or a["capacity"] != b["capacity"]:
+            raise AssertionError(f"[events] try {i}: alive rows or capacity differ")
+        seen = b["alive"] & (b["denom"] > 0)
+        rel = {k: float((np.abs(a[k] - b[k])[seen]
+                         / np.maximum(np.abs(b[k][seen]), 1e-30)).max())
+               for k in ("xyz_grad_accum", "denom", "max_radii2d")}
+        n_denom = int((a["denom"] != b["denom"]).sum())
+        n_radii = int((a["max_radii2d"] != b["max_radii2d"]).sum())
+        log("events", f"try {i} at iteration {b['it']} (capacity {b['capacity']}, "
+            f"size_thr {b['size_thr']}): largest relative difference card "
+            f"against CPU over the {int(seen.sum())} seen Gaussians: "
+            + ", ".join(f"{k} {v:.3g}" for k, v in rel.items())
+            + f"; denom differs on {n_denom} Gaussians, max_radii2d on {n_radii}")
+        counts = {k: (int(a[k].sum()), int(b[k].sum())) for k in ("clone", "split")}
+        counts["prune"] = (int((a["prune"] & ~a["split"]).sum()),
+                           int((b["prune"] & ~b["split"]).sum()))
+        differ = event_differences(a, b, tr_cpu.opt, extent)
+        faults = [x for x in differ if x[3]]
+        log("events", f"try {i} decisions (card, cpu): " + ", ".join(
+            f"{k} {v[0]}/{v[1]}" for k, v in counts.items())
+            + f"; points after {a['alive_after']}/{b['alive_after']}; "
+            f"{len(differ)} decision(s) differ"
+            + (": " + "; ".join(
+                f"Gaussian {g} {name} (" + ", ".join(
+                    f"{r} margin {m:.3g} band {bd:.3g}" for r, m, bd in ms) + ")"
+                for g, name, ms, _ in differ[:20]) if differ else ""))
+        if faults:
+            raise AssertionError(f"[events] decisions differ outside the rounding "
+                                 f"band: {faults[:10]}")
+    trainers.clear()
+    return len(steps)
+
+
 # ---------------------------------------------------------------- render
 
 
@@ -4269,6 +4628,8 @@ def main():
     phase_deep_tile(device)
     phase_determinism(scenes + flat_scenes, runs + flat_runs)
     trainer_launches = phase_trainer(device, drift="--drift" in sys.argv[1:])
+    phase_events(device, os.path.join(TRAINER_DIR, "ftorf"),
+                 os.path.join(TRAINER_DIR, "out", "ftorf"), 260)
     render_launches = phase_render(device)
     sharded_launches = phase_sharded(device, runs)
     phase_sharded_trainer(device)

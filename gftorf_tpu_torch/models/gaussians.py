@@ -286,6 +286,34 @@ def _f32(x, dev):
     return torch.tensor(x, dtype=torch.float32, device=dev)
 
 
+def densify_masks(state: GaussianModelState, hyper: DensifyHyper,
+                  scene_extent: float, max_screen_size: float):
+    """The decisions of ``densify_and_prune``: the (C,) clone, split and
+    prune masks (the prune mask holds the split originals too)."""
+    params, aux, _ = state
+    dev = params.xyz.device
+    alive = aux.alive
+    max_scale = get_scaling(params).max(dim=-1).values
+    # Thresholds in float32, as the JAX package forms them on the device.
+    extent = _f32(scene_extent, dev)
+
+    grads = aux.xyz_grad_accum / aux.denom.clamp(min=1e-30)
+    grads = torch.where(aux.denom > 0, grads, 0.0)
+    high = alive & (grads >= hyper.grad_threshold)
+    dense_thr = _f32(hyper.percent_dense, dev) * extent
+    clone_m = high & (max_scale <= dense_thr)
+    split_m = high & (max_scale > dense_thr)
+
+    # Prune (:624-638); the screen-size rule is inert in the reference
+    # (max_radii2D is zeroed before it is read, :566), so only the
+    # world-size rules apply. Split originals are replaced (:600-601).
+    prune = alive & (get_opacity(params)[:, 0] < hyper.min_opacity)
+    if max_screen_size > 0:
+        prune = prune | (alive & ((max_scale > _f32(0.05, dev) * extent)
+                                  | (max_scale < _f32(0.001, dev) * extent)))
+    return clone_m, split_m, prune | split_m
+
+
 def densify_and_prune(
     state: GaussianModelState,
     noise: Union[torch.Tensor, torch.Generator],
@@ -309,25 +337,8 @@ def densify_and_prune(
     dev = params.xyz.device
     alive = aux.alive
     scal = get_scaling(params)
-    max_scale = scal.max(dim=-1).values
-    # Thresholds in float32, as the JAX package forms them on the device.
-    extent = _f32(scene_extent, dev)
-
-    grads = aux.xyz_grad_accum / aux.denom.clamp(min=1e-30)
-    grads = torch.where(aux.denom > 0, grads, 0.0)
-    high = alive & (grads >= hyper.grad_threshold)
-    dense_thr = _f32(hyper.percent_dense, dev) * extent
-    clone_m = high & (max_scale <= dense_thr)
-    split_m = high & (max_scale > dense_thr)
-
-    # Prune (:624-638); the screen-size rule is inert in the reference
-    # (max_radii2D is zeroed before it is read, :566), so only the
-    # world-size rules apply. Split originals are replaced (:600-601).
-    prune = alive & (get_opacity(params)[:, 0] < hyper.min_opacity)
-    if max_screen_size > 0:
-        prune = prune | (alive & ((max_scale > _f32(0.05, dev) * extent)
-                                  | (max_scale < _f32(0.001, dev) * extent)))
-    prune = prune | split_m
+    clone_m, split_m, prune = densify_masks(state, hyper, scene_extent,
+                                            max_screen_size)
 
     n = hyper.split_n
     if isinstance(noise, torch.Generator):

@@ -24,9 +24,10 @@ Where the port differs from a line-by-line copy:
 - Tile depth. The Hopper kernels stage instances through shared memory in
   batches, so tile depth has no ceiling there: the JAX Trainer's VMEM clamp
   of ``max_per_tile_limit`` (``max_feasible_tile_cap``) has no counterpart.
-  Its compile check (``check_bwd_cap``) becomes one launch of the dense
-  backward kernel at ``max_per_tile_limit`` at start-up on CUDA, which
-  raises if the card refuses it.
+  Its compile check (``check_bwd_cap``) becomes ``check_backward_fits`` at
+  start-up on CUDA: the card's occupancy query of each dense backward
+  instance the step launches, which raises where a launch would be
+  refused.
 - The flat-stream fallback (a scene's deepest tile outgrowing
   ``max_per_tile_limit``) is available on CUDA, where the JAX package
   needs a TPU; on the CPU the port truncates with a warning as JAX does on
