@@ -1,0 +1,10 @@
+"""Device-idle time a served frame while the innermost program span open
+is one of the three ``render.*`` spans."""
+
+from harness import spans
+
+
+def read(r):
+    if r.kind != "serve":
+        return None
+    return spans.idle_ms(r, spans.RENDER)

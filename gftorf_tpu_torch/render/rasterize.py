@@ -44,6 +44,7 @@ from gftorf_tpu_torch.render.kernels.dense import (
 from gftorf_tpu_torch.render.kernels.flat import composite_packed_flat
 from gftorf_tpu_torch.render.preprocess import PreprocessOutputs, preprocess
 from gftorf_tpu_torch.render.settings import CameraSpec, RasterConfig, RenderOutputs
+from gftorf_tpu_torch.utils.trace import span
 
 
 def segment_sum_rows(rows: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
@@ -101,30 +102,33 @@ def composite_inputs(
     (rasterize.py:140-154), whose padding rows are exact zeros (opacity 0:
     dead lanes) and get no gradient."""
     P = means3d.shape[0]
-    pre = preprocess(
-        means3d, scales, rotations, opacities, shs, shs_p,
-        phase_offset, dc_offset, means2d_ndc, camera, config,
-        active_sh_degree, colors_precomp, phasors_precomp, cov3d_precomp,
-    )
-    T = config.num_tiles
-    binner = bin_gaussians_flat if config.flat_stream else bin_gaussians
-    binning = binner(pre.rect.detach(), pre.depth_view.detach(), pre.valid,
-                     config, config.capacity_for(P))
-    packed = pack_gaussian_features(pre, flow=flow_precomp)  # (P, 24)
-    if config.flat_stream:
-        ids = binning.gauss_flat
-        # A padding id reads row 0: the select makes its row zero.
-        feat = torch.where((ids >= 0)[:, None], gather_rows(packed, ids), 0.0)
-    else:
-        feat = gather_rows(packed, binning.gauss_id.reshape(-1)).reshape(
-            *binning.gauss_id.shape, 24)
-    return CompositeInputs(
-        pre=pre,
-        binning=binning,
-        feat=feat,
-        bg_tiles=_bg_to_tiles(bg_map, T, config),
-        origins=_default_origins(T, config, means3d.device),
-    )
+    with span("render.preprocess"):
+        pre = preprocess(
+            means3d, scales, rotations, opacities, shs, shs_p,
+            phase_offset, dc_offset, means2d_ndc, camera, config,
+            active_sh_degree, colors_precomp, phasors_precomp, cov3d_precomp,
+        )
+    with span("render.binning"):
+        T = config.num_tiles
+        binner = bin_gaussians_flat if config.flat_stream else bin_gaussians
+        binning = binner(pre.rect.detach(), pre.depth_view.detach(),
+                         pre.valid, config, config.capacity_for(P))
+        packed = pack_gaussian_features(pre, flow=flow_precomp)  # (P, 24)
+        if config.flat_stream:
+            ids = binning.gauss_flat
+            # A padding id reads row 0: the select makes its row zero.
+            feat = torch.where((ids >= 0)[:, None], gather_rows(packed, ids),
+                               0.0)
+        else:
+            feat = gather_rows(packed, binning.gauss_id.reshape(-1)).reshape(
+                *binning.gauss_id.shape, 24)
+        return CompositeInputs(
+            pre=pre,
+            binning=binning,
+            feat=feat,
+            bg_tiles=_bg_to_tiles(bg_map, T, config),
+            origins=_default_origins(T, config, means3d.device),
+        )
 
 
 def rasterize(
@@ -154,41 +158,42 @@ def rasterize(
             colors_precomp, phasors_precomp, cov3d_precomp, flow_precomp)
     has_flow = flow_precomp is not None
     ci = composite_inputs(*args)
-    binning = ci.binning
-    if config.flat_stream:
-        out = composite_packed_flat(
-            ci.feat, binning.tile_start, binning.tile_count, ci.bg_tiles,
-            ci.origins, config, has_flow)
-        ids = binning.gauss_flat
-        tile_overflow = torch.zeros((), dtype=torch.int32, device=ids.device)
-    else:
-        out = unpack_outputs(*DenseComposite.apply(
-            ci.feat, ci.bg_tiles, binning.tile_count, ci.origins, config,
-            has_flow))
-        ids = binning.gauss_id.reshape(-1)
-        tile_overflow = binning.tile_overflow
+    with span("render.composite"):
+        binning = ci.binning
+        if config.flat_stream:
+            out = composite_packed_flat(
+                ci.feat, binning.tile_start, binning.tile_count, ci.bg_tiles,
+                ci.origins, config, has_flow)
+            ids = binning.gauss_flat
+            tile_overflow = torch.zeros((), dtype=torch.int32, device=ids.device)
+        else:
+            out = unpack_outputs(*DenseComposite.apply(
+                ci.feat, ci.bg_tiles, binning.tile_count, ci.origins, config,
+                has_flow))
+            ids = binning.gauss_id.reshape(-1)
+            tile_overflow = binning.tile_overflow
 
-    # Per-Gaussian touched-pixel counts: a sum of integer-valued float32
-    # counts below 2**24, exact (so deterministic) in any order. Empty
-    # slots (id -1) add their count of 0 to Gaussian 0.
-    pixels = torch.zeros(P, dtype=torch.float32, device=means3d.device)
-    pixels.index_add_(0, ids.clamp(min=0).to(torch.int64),
-                      out.contrib_pixels.reshape(-1))
+        # Per-Gaussian touched-pixel counts: a sum of integer-valued float32
+        # counts below 2**24, exact (so deterministic) in any order. Empty
+        # slots (id -1) add their count of 0 to Gaussian 0.
+        pixels = torch.zeros(P, dtype=torch.float32, device=means3d.device)
+        pixels.index_add_(0, ids.clamp(min=0).to(torch.int64),
+                          out.contrib_pixels.reshape(-1))
 
-    return RenderOutputs(
-        color=tiles_to_image(out.color, config),
-        phasor=tiles_to_image(out.phasor, config),
-        depth=tiles_to_image(out.depth, config),
-        acc=tiles_to_image(out.acc, config),
-        depth_distortion=tiles_to_image(out.dd, config),
-        distribution=tiles_to_image(out.distribution, config),
-        pixels=pixels[:, None],
-        radii=ci.pre.radius.detach().to(torch.int32),
-        num_rendered=binning.num_rendered,
-        dup_overflow=binning.dup_overflow,
-        tile_overflow=tile_overflow,
-        tile_max=binning.tile_max,
-        rendered_worst=binning.num_rendered,
-        flow=(None if flow_precomp is None
-              else tiles_to_image(out.flow, config)),
-    )
+        return RenderOutputs(
+            color=tiles_to_image(out.color, config),
+            phasor=tiles_to_image(out.phasor, config),
+            depth=tiles_to_image(out.depth, config),
+            acc=tiles_to_image(out.acc, config),
+            depth_distortion=tiles_to_image(out.dd, config),
+            distribution=tiles_to_image(out.distribution, config),
+            pixels=pixels[:, None],
+            radii=ci.pre.radius.detach().to(torch.int32),
+            num_rendered=binning.num_rendered,
+            dup_overflow=binning.dup_overflow,
+            tile_overflow=tile_overflow,
+            tile_max=binning.tile_max,
+            rendered_worst=binning.num_rendered,
+            flow=(None if flow_precomp is None
+                  else tiles_to_image(out.flow, config)),
+        )

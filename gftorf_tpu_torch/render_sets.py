@@ -47,6 +47,7 @@ from gftorf_tpu_torch.train.export import load_deform_model, load_gaussians_from
 from gftorf_tpu_torch.train.loop import Trainer
 from gftorf_tpu_torch.utils.image_io import write_gif, write_png
 from gftorf_tpu_torch.utils.runtime import resolve_device
+from gftorf_tpu_torch.utils.trace import span
 from gftorf_tpu_torch.utils.viz import (
     depth_to_disp_viz,
     normalize_im,
@@ -125,50 +126,53 @@ def render_frame(trainer, static, frame):
     transfer. On an overflow the Trainer's capacities grow and the frame
     is rendered again; the returned static carries the grown ones.
     """
-    deform = functools.partial(apply_deform, trainer.deform, trainer.deform_cfg)
-    first, renders = None, 0
-    while True:
-        renders += 1
-        _, out_color, out_tof = eval_frame(
-            static, trainer.model.params, deform, trainer.model.aux.alive,
-            frame, device=trainer.device)
-        parts = {"color": out_color.color, "phasor": out_tof.phasor,
-                 "depth": out_tof.depth[0], "dd": out_tof.depth_distortion[0]}
-        counters = torch.stack([
-            torch.stack([o.tile_overflow.to(torch.int32),
-                         o.tile_max.to(torch.int32),
-                         o.dup_overflow.to(torch.int32),
-                         o.num_rendered.to(torch.int32)])
-            for o in (out_tof, out_color)])
-        flat = torch.cat([t.reshape(-1) for t in parts.values()]
-                         + [counters.reshape(-1).view(torch.float32)])
-        host = flat.cpu().numpy()
-        arrays, pos = {}, 0
-        for name, t in parts.items():
-            arrays[name] = host[pos:pos + t.numel()].reshape(t.shape)
-            pos += t.numel()
-        c = host[pos:].view(np.int32).reshape(2, 4)
-        metrics = {"tile_overflow": int(c[:, 0].max()),
-                   "tile_max": int(c[:, 1].max()),
-                   "dup_overflow": int(c[:, 2].max()),
-                   "rendered_max": int(c[:, 3].max())}
-        if first is None:
-            first = metrics
-        if not trainer._overflowed(metrics):
-            break
-        grew = trainer.grow_capacities(metrics)
-        print(f"[render] frame {int(frame.frame_id)}: capacity overflow -> "
-              f"{', '.join(grew)}, rendering it again", flush=True)
-        static = trainer.with_capacities(static)
-    if metrics["tile_overflow"] > 0:
-        trainer._warn_tile_limit(trainer.iteration, metrics["tile_overflow"])
-    if metrics["dup_overflow"] > 0:
-        trainer._warn_dup_limit(trainer.iteration)
-    record = dict(first, tile_overflow_final=metrics["tile_overflow"],
-                  renders=renders, max_per_tile=static.config_tof.max_per_tile,
-                  dup_factor=static.config_tof.dup_factor,
-                  flat_stream=static.config_tof.flat_stream)
-    return static, arrays, record
+    with span("serve.frame"):
+        deform = functools.partial(apply_deform, trainer.deform,
+                                   trainer.deform_cfg)
+        first, renders = None, 0
+        while True:
+            renders += 1
+            _, out_color, out_tof = eval_frame(
+                static, trainer.model.params, deform, trainer.model.aux.alive,
+                frame, device=trainer.device)
+            parts = {"color": out_color.color, "phasor": out_tof.phasor,
+                     "depth": out_tof.depth[0], "dd": out_tof.depth_distortion[0]}
+            with span("serve.to_host"):
+                counters = torch.stack([
+                    torch.stack([o.tile_overflow.to(torch.int32),
+                                 o.tile_max.to(torch.int32),
+                                 o.dup_overflow.to(torch.int32),
+                                 o.num_rendered.to(torch.int32)])
+                    for o in (out_tof, out_color)])
+                flat = torch.cat([t.reshape(-1) for t in parts.values()]
+                                 + [counters.reshape(-1).view(torch.float32)])
+                host = flat.cpu().numpy()
+                arrays, pos = {}, 0
+                for name, t in parts.items():
+                    arrays[name] = host[pos:pos + t.numel()].reshape(t.shape)
+                    pos += t.numel()
+                c = host[pos:].view(np.int32).reshape(2, 4)
+                metrics = {"tile_overflow": int(c[:, 0].max()),
+                           "tile_max": int(c[:, 1].max()),
+                           "dup_overflow": int(c[:, 2].max()),
+                           "rendered_max": int(c[:, 3].max())}
+            if first is None:
+                first = metrics
+            if not trainer._overflowed(metrics):
+                break
+            grew = trainer.grow_capacities(metrics)
+            print(f"[render] frame {int(frame.frame_id)}: capacity overflow -> "
+                  f"{', '.join(grew)}, rendering it again", flush=True)
+            static = trainer.with_capacities(static)
+        if metrics["tile_overflow"] > 0:
+            trainer._warn_tile_limit(trainer.iteration, metrics["tile_overflow"])
+        if metrics["dup_overflow"] > 0:
+            trainer._warn_dup_limit(trainer.iteration)
+        cfg = static.config_tof
+        record = dict(first, tile_overflow_final=metrics["tile_overflow"],
+                      renders=renders, max_per_tile=cfg.max_per_tile,
+                      dup_factor=cfg.dup_factor, flat_stream=cfg.flat_stream)
+        return static, arrays, record
 
 
 def _write_frame(out_dir, i, out, depth_range, phase_offset, use_quad):

@@ -210,7 +210,7 @@ def _train(args, cfg, device):
         if not quiet and (oit % 200 == 0 or oit == 1):
             print(f"[{oit}/{iterations}] loss {out['ema_loss']:.5f} "
                   f"pts {out['num_points']} vis {out['visible']} "
-                  f"{out['iter_time'] * 1e3:.1f} ms", flush=True)
+                  f"step {out['iter_time'] * 1e3:.1f} ms", flush=True)
         if cfg.pipe.debug and (oit % cfg.tpu.debug_interval == 0 or oit == 1):
             # label with the trainer's live iteration: the model state is
             # metrics_lag steps ahead of this resolved record

@@ -90,6 +90,7 @@ from gftorf_tpu_torch.utils.checkpoint import (
     tree_unflatten,
 )
 from gftorf_tpu_torch.utils.runtime import resolve_device
+from gftorf_tpu_torch.utils.trace import span
 from gftorf_tpu_torch.weights import (
     deform_adam_from_numpy,
     deform_dict_from_numpy,
@@ -184,7 +185,8 @@ class Trainer:
         self.history: list = []
         self.metrics_lag = max(0, cfg.tpu.metrics_lag)
         self._pending: list = []
-        self._last_resolve_t = time.perf_counter()
+        # Host seconds of each step() call whose record is still pending.
+        self._step_s: dict = {}
         self.tile_cap = cfg.tpu.max_per_tile
         self.tile_cap_limit = max(self.tile_cap, cfg.tpu.max_per_tile_limit)
         # Active compositor layout: flat_stream may flip on (the fallback)
@@ -396,9 +398,11 @@ class Trainer:
 
     @staticmethod
     def _metrics_of(rec) -> dict:
-        if rec.get("event") is not None:
-            rec["event"].synchronize()
-        return dict(zip(METRIC_NAMES, (float(v) for v in np.asarray(rec["packed"]))))
+        with span("trainer.wait"):
+            if rec.get("event") is not None:
+                rec["event"].synchronize()
+            return dict(zip(METRIC_NAMES,
+                            (float(v) for v in np.asarray(rec["packed"]))))
 
     def _resolve_one(self) -> dict:
         """Read the oldest pending record's metrics; react to overflow."""
@@ -423,20 +427,19 @@ class Trainer:
 
         loss = metrics["loss"]
         self.ema_loss = 0.4 * loss + 0.6 * self.ema_loss
-        now = time.perf_counter()
         out = {
             "iteration": rec["it"],
             "idx": int(np.atleast_1d(rec["idx"])[0]),
             "loss": loss,
             "l1_p": metrics["l1_p"],
             "ema_loss": self.ema_loss,
-            "iter_time": now - self._last_resolve_t,
+            # None until step() returns, where this is its own record.
+            "iter_time": self._step_s.pop(rec["it"], None),
             "num_points": int(metrics["num_points"]),
             "visible": int(metrics["visible"]),
             "dup_overflow": bool(metrics["dup_overflow"]),
             "tile_overflow": int(metrics["tile_overflow"]),
         }
-        self._last_resolve_t = now
         self.history.append(out)
         return out
 
@@ -521,7 +524,9 @@ class Trainer:
                   f"{', '.join(grew)}, replaying", flush=True)
             self.model, self.deform, self.deform_adam = rec["prev"]
             for r in replay:
-                self._dispatch(r["it"], r["idx"], self.with_capacities(r["static"]))
+                with span("trainer.replay"):
+                    self._dispatch(r["it"], r["idx"],
+                                   self.with_capacities(r["static"]))
             rec = self._pending.pop(0)
             replay = [rec] + self._pending
             self._pending = []
@@ -609,7 +614,22 @@ class Trainer:
 
     def step(self) -> list:
         """Advance one iteration; returns the records resolved by it
-        (none while the pipeline fills, several at a drain point)."""
+        (none while the pipeline fills, several at a drain point). A
+        record's ``iter_time`` is the host seconds of the ``step()`` call
+        that dispatched its iteration, events, replays and waits included,
+        so over a run they sum to the time spent in ``step()``."""
+        t0 = time.perf_counter()
+        with span("trainer.step"):
+            outs = self._advance()
+        seconds = time.perf_counter() - t0
+        own = next((o for o in outs if o["iteration"] == self.iteration), None)
+        if own is None:  # resolved in a later call, or by drain()
+            self._step_s[self.iteration] = seconds
+        else:
+            own["iter_time"] = seconds
+        return outs
+
+    def _advance(self) -> list:
         self.iteration += 1
         it = self.iteration
         m, opt = self.cfg.model, self.opt
@@ -643,8 +663,10 @@ class Trainer:
                 self._reset_opacity()
         elif opt.use_opacity_entropy_loss and it % opt.densification_interval == 0:
             outs += self.drain()
-            self.model = sort_layout(prune_only(self.model, opt.min_opacity))
-            self._update_deform_bucket()
+            with span("trainer.prune"):
+                self.model = sort_layout(prune_only(self.model,
+                                                    opt.min_opacity))
+                self._update_deform_bucket()
 
         # tof_iters event (train.py:476-478)
         if it == opt.tof_iters:
@@ -657,38 +679,41 @@ class Trainer:
         return outs
 
     def _densify(self, size_thr: float):
-        opt = self.opt
-        hyper = DensifyHyper(grad_threshold=opt.densify_grad_threshold,
-                             min_opacity=opt.min_opacity,
-                             percent_dense=opt.percent_dense)
-        for _ in range(4):
-            new_state, dropped = densify_and_prune(
-                self.model, self._rng(DENSIFY_SEED_OFFSET + self.iteration),
-                hyper, self.scene.scene_extent, size_thr)
-            dropped = int(dropped)
-            if dropped == 0:
-                break
-            # Grow and run again (the same seed draws the same noise for
-            # a capacity).
-            cap = self.model.aux.alive.shape[0]
-            new_cap = int(cap * self.cfg.tpu.capacity_growth) + dropped
-            self.model = grow_capacity(self.model, -(-new_cap // 1024) * 1024)
-        else:
-            print(f"[iter {self.iteration}] densification still dropping "
-                  f"{dropped} points after 4 capacity growths; accepting "
-                  "truncated densify", flush=True)
-        self.model = sort_layout(new_state)
-        self._update_deform_bucket()
+        with span("trainer.densify"):
+            opt = self.opt
+            hyper = DensifyHyper(grad_threshold=opt.densify_grad_threshold,
+                                 min_opacity=opt.min_opacity,
+                                 percent_dense=opt.percent_dense)
+            for _ in range(4):
+                new_state, dropped = densify_and_prune(
+                    self.model, self._rng(DENSIFY_SEED_OFFSET + self.iteration),
+                    hyper, self.scene.scene_extent, size_thr)
+                dropped = int(dropped)
+                if dropped == 0:
+                    break
+                # Grow and run again (the same seed draws the same noise for
+                # a capacity).
+                cap = self.model.aux.alive.shape[0]
+                new_cap = int(cap * self.cfg.tpu.capacity_growth) + dropped
+                self.model = grow_capacity(self.model,
+                                           -(-new_cap // 1024) * 1024)
+            else:
+                print(f"[iter {self.iteration}] densification still dropping "
+                      f"{dropped} points after 4 capacity growths; accepting "
+                      "truncated densify", flush=True)
+            self.model = sort_layout(new_state)
+            self._update_deform_bucket()
 
     def _reset_opacity(self):
-        motion = get_motion_mask(self.model.params)
-        if self.render_regions == ("static",):
-            mask = ~motion
-        elif self.render_regions == ("dynamic",):
-            mask = motion
-        else:
-            mask = None
-        self.model = reset_opacity_state(self.model, mask)
+        with span("trainer.reset"):
+            motion = get_motion_mask(self.model.params)
+            if self.render_regions == ("static",):
+                mask = ~motion
+            elif self.render_regions == ("dynamic",):
+                mask = motion
+            else:
+                mask = None
+            self.model = reset_opacity_state(self.model, mask)
 
     # ------------------------------------------------------------------
     def _checkpoint_tree(self) -> dict:

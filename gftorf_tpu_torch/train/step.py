@@ -41,7 +41,6 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
 
 from gftorf_tpu_torch.models.deform import (
     DeformConfig,
@@ -78,6 +77,7 @@ from gftorf_tpu_torch.parallel.sharded import pad_rows, rasterize_sharded
 from gftorf_tpu_torch.render.rasterize import gather_rows, rasterize
 from gftorf_tpu_torch.render.settings import CameraSpec, RasterConfig
 from gftorf_tpu_torch.train import losses as L
+from gftorf_tpu_torch.utils.trace import span
 
 
 class FrameData(NamedTuple):
@@ -433,47 +433,48 @@ def _query_deform(static: StepStatic, deform, params: GaussianParams, fid: int,
     a callable ``(xyz, t, x_emb=None)``: a ``DeformNetwork``, or
     ``apply_deform`` bound to a parameter dict. ``fid`` is the frame
     index (a Python int or a 0-d tensor)."""
-    fid = int(fid)
-    xyz_n, expand = _deform_slots(static, params, alive)
-    denom = max(static.total_num_views - 1, 1)
+    with span("deform.query"):
+        fid = int(fid)
+        xyz_n, expand = _deform_slots(static, params, alive)
+        denom = max(static.total_num_views - 1, 1)
 
-    def clip_dxyz(d):
-        if static.deform_clip <= 0.0:
-            return d
-        max_norm = static.deform_clip * static.scene_extent
-        norm = torch.linalg.vector_norm(d, dim=-1, keepdim=True)
-        return d * torch.clamp(max_norm / norm.clamp(min=1e-12), max=1.0)
+        def clip_dxyz(d):
+            if static.deform_clip <= 0.0:
+                return d
+            max_norm = static.deform_clip * static.scene_extent
+            norm = torch.linalg.vector_norm(d, dim=-1, keepdim=True)
+            return d * torch.clamp(max_norm / norm.clamp(min=1e-12), max=1.0)
 
-    if static.scene_type == "torf":
-        d = deform(xyz_n, _times(_f32_div(fid, denom), xyz_n))
-        d = (clip_dxyz(d[0]),) + tuple(d[1:])
-        d_xyz, d_rot, d_sh, d_sh_p = (expand(x) for x in d)
-        return d_xyz, d_rot, d_sh, d_sh_p, d_xyz, d_xyz
-    # ftorf: lerp between the neighboring integration (multiple-of-4)
-    # frames, one stacked MLP call for both samples. The reference keeps
-    # only d_xyz here (train.py:171): d_rot/d_sh/d_sh_p stay zero.
-    curr = (fid // 4) * 4
-    nxt = curr + 4
-    b = xyz_n.shape[0]
-    t2 = torch.cat([_times(_f32_div(curr, denom), xyz_n),
-                    _times(_f32_div(nxt, denom), xyz_n)])
-    x_emb1 = embed_xyz(static.deform, xyz_n)
-    d2 = deform(torch.cat([xyz_n, xyz_n]), t2,
-                x_emb=torch.cat([x_emb1, x_emb1]))[0]
-    d_curr = expand(clip_dxyz(d2[:b]))
-    d_next = expand(clip_dxyz(d2[b:]))
-    if static.deform_sync or fid % 4 == 0:
-        d_xyz = d_curr
-    else:
-        frac_next = float(fid - curr)
-        frac_curr = float(nxt - fid)
-        d_xyz = 0.25 * (frac_next * d_next + frac_curr * d_curr)
-    n = d_xyz.shape[0]
-    m = (static.deform.sh_degree + 1) ** 2
-    d_rot = d_xyz.new_zeros((n, 4))
-    d_sh = d_xyz.new_zeros((n, m, 3))
-    d_sh_p = d_xyz.new_zeros((n, m, 2))
-    return d_xyz, d_rot, d_sh, d_sh_p, d_curr, d_next
+        if static.scene_type == "torf":
+            d = deform(xyz_n, _times(_f32_div(fid, denom), xyz_n))
+            d = (clip_dxyz(d[0]),) + tuple(d[1:])
+            d_xyz, d_rot, d_sh, d_sh_p = (expand(x) for x in d)
+            return d_xyz, d_rot, d_sh, d_sh_p, d_xyz, d_xyz
+        # ftorf: lerp between the neighboring integration (multiple-of-4)
+        # frames, one stacked MLP call for both samples. The reference keeps
+        # only d_xyz here (train.py:171): d_rot/d_sh/d_sh_p stay zero.
+        curr = (fid // 4) * 4
+        nxt = curr + 4
+        b = xyz_n.shape[0]
+        t2 = torch.cat([_times(_f32_div(curr, denom), xyz_n),
+                        _times(_f32_div(nxt, denom), xyz_n)])
+        x_emb1 = embed_xyz(static.deform, xyz_n)
+        d2 = deform(torch.cat([xyz_n, xyz_n]), t2,
+                    x_emb=torch.cat([x_emb1, x_emb1]))[0]
+        d_curr = expand(clip_dxyz(d2[:b]))
+        d_next = expand(clip_dxyz(d2[b:]))
+        if static.deform_sync or fid % 4 == 0:
+            d_xyz = d_curr
+        else:
+            frac_next = float(fid - curr)
+            frac_curr = float(nxt - fid)
+            d_xyz = 0.25 * (frac_next * d_next + frac_curr * d_curr)
+        n = d_xyz.shape[0]
+        m = (static.deform.sh_degree + 1) ** 2
+        d_rot = d_xyz.new_zeros((n, 4))
+        d_sh = d_xyz.new_zeros((n, m, 3))
+        d_sh_p = d_xyz.new_zeros((n, m, 2))
+        return d_xyz, d_rot, d_sh, d_sh_p, d_curr, d_next
 
 
 def _times(t_value: float, rows: torch.Tensor) -> torch.Tensor:
@@ -607,10 +608,11 @@ def _frame_loss(static: StepStatic, w: LossWeights, p: GaussianParams, dfp,
     flow_precomp = None
     if static.flow_on and static.dynamic_on and static.flow_frame is not False:
         if fid % 4 == 0:
-            rows, expand = _deform_slots(static, p, aux.alive)
-            prev_t = _f32_div((fid // 4) * 4 - 4,
-                              max(static.total_num_views - 1, 1))
-            d_prev = expand(mlp(rows, _times(prev_t, rows))[0])
+            with span("deform.query"):
+                rows, expand = _deform_slots(static, p, aux.alive)
+                prev_t = _f32_div((fid // 4) * 4 - 4,
+                                  max(static.total_num_views - 1, 1))
+                d_prev = expand(mlp(rows, _times(prev_t, rows))[0])
             motion = get_motion_mask(p)[:, None]
             flow_precomp = torch.where(
                 motion, torch.cat([d_next - d_xyz, d_prev - d_xyz], -1), 0.0)
@@ -673,104 +675,109 @@ def _frame_loss(static: StepStatic, w: LossWeights, p: GaussianParams, dfp,
     pixels_full = rexpand(out_tof.pixels[:, 0])
     phasor = out_tof.phasor
     depth = out_tof.depth
-    ssim = functools.partial(L.ssim, impl=static.ssim_impl)
+    with span("loss.frame"):
+        ssim = functools.partial(L.ssim, impl=static.ssim_impl)
 
-    total = torch.zeros((), dtype=torch.float32, device=dev)
-    metrics = {}
+        total = torch.zeros((), dtype=torch.float32, device=dev)
+        metrics = {}
 
-    # Color loss (train.py:204-206)
-    if static.color_on:
-        image = out_color.color
-        if static.use_wl1c:
-            ll1 = L.weighted_l1_loss(image, frame.gt_image, 0.01, 3)
-        else:
-            ll1 = L.l1_loss(image, frame.gt_image)
-        total = total + w.color * (
-            (1.0 - w.dssim) * ll1
-            + w.dssim * (1.0 - ssim(image, frame.gt_image)))
-        metrics["l1_color"] = ll1
-
-    # ToF loss (train.py:208-228)
-    if static.scene_type in ("torf", "ftorf"):
-        tof_rendered, tof_gt = _select_tof(static, phasor, frame, fid)
-        if static.use_wl1p:
-            if static.use_quad:
-                ll1p = L.weighted_l2_loss_quad(tof_rendered, tof_gt,
-                                               static.wl1p_e)
+        # Color loss (train.py:204-206)
+        if static.color_on:
+            image = out_color.color
+            if static.use_wl1c:
+                ll1 = L.weighted_l1_loss(image, frame.gt_image, 0.01, 3)
             else:
-                ll1p = L.weighted_l1_loss(tof_rendered, tof_gt, static.wl1p_e,
-                                          static.num_phasor_channels)
-        else:
-            ll1p = L.l2_loss(tof_rendered, tof_gt)
-        total = total + w.tof * (
-            (1.0 - w.dssim) * ll1p
-            + w.dssim * (1.0 - ssim(tof_rendered, tof_gt)))
-        metrics["l1_p"] = ll1p
+                ll1 = L.l1_loss(image, frame.gt_image)
+            total = total + w.color * (
+                (1.0 - w.dssim) * ll1
+                + w.dssim * (1.0 - ssim(image, frame.gt_image)))
+            metrics["l1_color"] = ll1
 
-    # Depth loss for baselines (train.py:230-234)
-    if static.depth_on:
+        # ToF loss (train.py:208-228)
         if static.scene_type in ("torf", "ftorf"):
-            gt_depth = depth_from_tof(
-                torch.movedim(frame.gt_phasor[:3], 0, -1),
-                frame.cam_tof.depth_range, phase_offset=frame.phase_offset,
-            )[None]
-            total = total + w.depth * (
-                (1.0 - w.dssim) * L.l1_loss(depth, gt_depth)
-                + w.dssim * (1.0 - ssim(depth, gt_depth)))
-        else:
-            total = total + w.depth * (
-                (1.0 - w.dssim) * L.l1_loss(out_color.depth, frame.gt_distance)
-                + w.dssim * (1.0 - ssim(out_color.depth, frame.gt_distance)))
+            tof_rendered, tof_gt = _select_tof(static, phasor, frame, fid)
+            if static.use_wl1p:
+                if static.use_quad:
+                    ll1p = L.weighted_l2_loss_quad(tof_rendered, tof_gt,
+                                                   static.wl1p_e)
+                else:
+                    ll1p = L.weighted_l1_loss(tof_rendered, tof_gt, static.wl1p_e,
+                                              static.num_phasor_channels)
+            else:
+                ll1p = L.l2_loss(tof_rendered, tof_gt)
+            total = total + w.tof * (
+                (1.0 - w.dssim) * ll1p
+                + w.dssim * (1.0 - ssim(tof_rendered, tof_gt)))
+            metrics["l1_p"] = ll1p
 
-    # Deformation regularizer (train.py:239-240) over the live dynamic set.
-    if static.mlp_reg_on and static.dynamic_on:
-        motion = get_motion_mask(p) & aux.alive
-        reg = (d_xyz.abs() * motion[:, None]).sum() / (
-            3.0 * motion.sum().clamp(min=1))
-        total = total + w.mlp_reg * reg
+        # Depth loss for baselines (train.py:230-234)
+        if static.depth_on:
+            if static.scene_type in ("torf", "ftorf"):
+                gt_depth = depth_from_tof(
+                    torch.movedim(frame.gt_phasor[:3], 0, -1),
+                    frame.cam_tof.depth_range, phase_offset=frame.phase_offset,
+                )[None]
+                total = total + w.depth * (
+                    (1.0 - w.dssim) * L.l1_loss(depth, gt_depth)
+                    + w.dssim * (1.0 - ssim(depth, gt_depth)))
+            else:
+                dist_c = out_color.depth
+                total = total + w.depth * (
+                    (1.0 - w.dssim) * L.l1_loss(dist_c, frame.gt_distance)
+                    + w.dssim * (1.0 - ssim(dist_c, frame.gt_distance)))
 
-    # Flow loss (train.py:243-261) on integration frames only, from the
-    # fused flow channels of the ToF render.
-    if (static.flow_on and static.dynamic_on
-            and static.flow_frame is not False):
-        f_l2 = b_l2 = 0.0
-        if fid % 4 == 0:
-            k_tof = frame.intrinsics_tof
-            view_tof = frame.cam_tof.viewmatrix
-            pts3d = distance_to_points3d(
-                depth.detach(), view_tof, k_tof[0, 0], k_tof[1, 1],
-                k_tof[0, 2], k_tof[1, 2])
-            pts2d = project_points(pts3d, view_tof, k_tof)
-            fwd2d = project_flow(pts2d, pts3d, out_tof.flow[0:3], view_tof,
-                                 k_tof)
-            f_l2 = torch.where(frame.has_forward_flow,
-                               ((fwd2d - frame.forward_flow) ** 2).mean(), 0.0)
-            bwd2d = project_flow(pts2d, pts3d, out_tof.flow[3:6], view_tof,
-                                 k_tof)
-            b_l2 = torch.where(frame.has_backward_flow,
-                               ((bwd2d - frame.backward_flow) ** 2).mean(), 0.0)
-        total = total + w.flow * (f_l2 + b_l2)
-        metrics["flow_l2"] = f_l2 + b_l2 if w.flow > 0 else 0.0
+        # Deformation regularizer (train.py:239-240) over the live dynamic set.
+        if static.mlp_reg_on and static.dynamic_on:
+            motion = get_motion_mask(p) & aux.alive
+            reg = (d_xyz.abs() * motion[:, None]).sum() / (
+                3.0 * motion.sum().clamp(min=1))
+            total = total + w.mlp_reg * reg
 
-    # Depth-distortion loss (train.py:266-267)
-    if static.dd_on:
-        total = total + w.dd * out_tof.depth_distortion.mean()
+        # Flow loss (train.py:243-261) on integration frames only, from the
+        # fused flow channels of the ToF render.
+        if (static.flow_on and static.dynamic_on
+                and static.flow_frame is not False):
+            f_l2 = b_l2 = 0.0
+            if fid % 4 == 0:
+                k_tof = frame.intrinsics_tof
+                view_tof = frame.cam_tof.viewmatrix
+                pts3d = distance_to_points3d(
+                    depth.detach(), view_tof, k_tof[0, 0], k_tof[1, 1],
+                    k_tof[0, 2], k_tof[1, 2])
+                pts2d = project_points(pts3d, view_tof, k_tof)
+                fwd2d = project_flow(pts2d, pts3d, out_tof.flow[0:3], view_tof,
+                                     k_tof)
+                f_l2 = torch.where(
+                    frame.has_forward_flow,
+                    ((fwd2d - frame.forward_flow) ** 2).mean(), 0.0)
+                bwd2d = project_flow(pts2d, pts3d, out_tof.flow[3:6], view_tof,
+                                     k_tof)
+                b_l2 = torch.where(
+                    frame.has_backward_flow,
+                    ((bwd2d - frame.backward_flow) ** 2).mean(), 0.0)
+            total = total + w.flow * (f_l2 + b_l2)
+            metrics["flow_l2"] = f_l2 + b_l2 if w.flow > 0 else 0.0
 
-    # Opacity entropy on dynamic gaussians (train.py:270-272)
-    if static.oe_on:
-        motion = get_motion_mask(p) & aux.alive
-        op = get_opacity(p)[:, 0]
-        ent = (-op * torch.log(op + 1e-10)
-               - (1 - op) * torch.log(1 - op + 1e-10))
-        total = total + w.oe * (ent * motion).sum() / motion.sum().clamp(min=1)
+        # Depth-distortion loss (train.py:266-267)
+        if static.dd_on:
+            total = total + w.dd * out_tof.depth_distortion.mean()
 
-    # Scale regularizer on visible gaussians (train.py:275-277)
-    if static.scale_on:
-        vis = (radii_full > 0) & include
-        per = get_scaling(p).mean(-1) ** 2
-        total = total + w.scale * (per * vis).sum() / vis.sum().clamp(min=1)
+        # Opacity entropy on dynamic gaussians (train.py:270-272)
+        if static.oe_on:
+            motion = get_motion_mask(p) & aux.alive
+            op = get_opacity(p)[:, 0]
+            ent = (-op * torch.log(op + 1e-10)
+                   - (1 - op) * torch.log(1 - op + 1e-10))
+            total = total + w.oe * (ent * motion).sum() / motion.sum().clamp(
+                min=1)
 
-    metrics["loss"] = total
+        # Scale regularizer on visible gaussians (train.py:275-277)
+        if static.scale_on:
+            vis = (radii_full > 0) & include
+            per = get_scaling(p).mean(-1) ** 2
+            total = total + w.scale * (per * vis).sum() / vis.sum().clamp(min=1)
+
+        metrics["loss"] = total
     metrics["compact_overflow"] = compact_overflow
     renders = [out_tof] + ([out_color] if color_live else [])
     aux_out = StepAux(
@@ -847,12 +854,12 @@ def train_step(static: StepStatic, model: GaussianModelState, deform,
                                requires_grad=grad_gauss)
     # The three spans let a profiler attribute device time to the stages
     # of a step (chip_smoke.py --profile).
-    with record_function("train_step.forward"):
+    with span("train_step.forward"):
         total, sa = _frame_loss(static, _weights_at(static, it), p, dfp,
                                 means2d_zero, aux, frame, generator, frame_id,
                                 None if mesh is None else mesh.shard_group)
 
-    with record_function("train_step.backward"):
+    with span("train_step.backward"):
         leaves = ((list(p) + [means2d_zero] if grad_gauss else [])
                   + list(dfp.values()))
         if total.requires_grad:
@@ -870,7 +877,7 @@ def train_step(static: StepStatic, model: GaussianModelState, deform,
         if mesh is not None:
             grads = _sharded_grads(grads, mesh.group)
             sa, rendered_max = _reduce_aux(sa, mesh.data_group)
-    with record_function("train_step.update"):
+    with span("train_step.update"):
         return _update(static, model, deform, deform_adam, lrs, deform_lr,
                        deform_step_on, grads, sa, grad_gauss, rendered_max)
 
