@@ -49,7 +49,8 @@ Phases, each printing lines tagged with its name and raising on failure:
             included. torf: 4 frames, two 320x240 cameras. Launch counts
             are zeroed just before and read just after; every output must
             be finite, no tile may overflow. A 4,000-Gaussian frame of each
-            scene must agree with the CPU path (plain compositor).
+            scene must agree with the CPU path (plain compositor and
+            preprocess).
    serve-flat  the same scenes and frames with flat_stream=True on both
             RasterConfigs: every frame agrees with the dense frame (atol
             1e-4, rtol 1e-3; integer outputs and pixel counts equal in all
@@ -80,9 +81,23 @@ Phases, each printing lines tagged with its name and raising on failure:
             dense frame at an L that holds the deepest tile, and both flat
             kernels equal their dense twins there; logs the depth and the
             four kernels' times.
+   preprocess  the per-Gaussian preprocess kernels (csrc/preprocess.cu)
+            against their plain version (render/preprocess.py::
+            preprocess_plain): every case of tests/test_torch_preprocess_
+            kernel.py (SH degrees 0-3, every branch, the edge rows) at its
+            tolerances, then the inputs of one training step at iteration
+            3001 (active SH degree 3): the ftorf render (131,072 rows, shs_p,
+            flow on) and the torf run's colour camera, every output and
+            every input's gradient under a cotangent in [-1, 1], the
+            offsets as leaves that need a gradient; each twice, bitwise
+            equal. Times each kernel (CUDA events) beside the plain version
+            (its forward, and autograd's backward through it) and the least
+            time the card could take for the bytes it moves; blocks per SM,
+            registers and spills of the degree-3 instances.
 6. determinism  a served frame rendered twice, and a training step run
             twice from one state with one generator seed, are bitwise equal,
-            on the dense and on the flat path.
+            on the dense and on the flat path (the preprocess kernels on
+            both).
 7. timing   each kernel at the ftorf training shapes (CUDA events), its
             plain version, and the least time the card could take for the
             same work (bytes over 3.35 TB/s, fp32 operations over 67
@@ -300,6 +315,10 @@ METRIC_RTOL = 1e-5
 MU_ATOL_FRAC, MU_RTOL = 1e-4, 1e-3
 NU_ATOL_FRAC, NU_RTOL = 2e-4, 2e-3
 KERNELS = ("dense_forward", "dense_backward", "flat_forward", "flat_backward")
+# The per-Gaussian preprocess pair, one source (csrc/preprocess.cu), and
+# the backward's one-block second pass that sums the offsets' gradients.
+PREPROCESS = ("preprocess_forward", "preprocess_backward")
+OFFSETS_SUM = "preprocess_offsets_sum"
 # Kernel 5: the Trainer's start-up fit check of dense_backward's instances
 # (render/kernels/dense.py::check_backward_fits), a query of the card.
 FIT_CHECK = "dense_backward_fit_check"
@@ -309,6 +328,11 @@ REPLACES = {
     "flat_forward": "gftorf_tpu/render/flat_stream.py:102",
     "flat_backward": "gftorf_tpu/render/flat_stream.py:235",
     FIT_CHECK: "gftorf_tpu/render/vmem_check.py:38",
+    "preprocess_forward": "none: gftorf_tpu_torch/render/preprocess.py::"
+                          "preprocess_plain, about 295 eager launches",
+    "preprocess_backward": "none: autograd through preprocess_plain, about "
+                           "595 eager launches",
+    OFFSETS_SUM: "none: autograd's sums of the offsets' gradients",
 }
 # The device properties dense.blocks_per_sm_plain reads, and the checks
 # timed for the fit check's host time.
@@ -341,7 +365,7 @@ def phase_build():
     from gftorf_tpu_torch.render.kernels import build
 
     t0 = time.perf_counter()
-    built = build.build(KERNELS)
+    built = build.build(KERNELS + ("preprocess",))
     secs = time.perf_counter() - t0
     for name, info in built.items():
         for line in info["log"].splitlines():
@@ -1593,6 +1617,7 @@ def phase_train(device, n_points=100_000, capacity=200_000):
             (TrainRun("torf", n_points, capacity, device), 10)]
     dense.composite_forward_cuda.launches = 0
     dense.composite_backward_cuda.launches = 0
+    reset_preprocess_launches()
     calls0 = sum(r.rasterize_calls for r, _ in runs)
     for run, steps in runs:
         times, losses, last = train_run(run, steps)
@@ -1617,7 +1642,8 @@ def phase_train(device, n_points=100_000, capacity=200_000):
     log("train", f"ok: {fwd} forward and {bwd} backward kernel launches for "
         f"{calls} differentiated rasterize calls in {steps} steps (and their "
         "replays)")
-    return [r for r, _ in runs], {"dense_forward": fwd, "dense_backward": bwd}
+    return [r for r, _ in runs], {"dense_forward": fwd, "dense_backward": bwd,
+                                  **read_preprocess_launches()}
 
 
 def phase_train_flat(runs):
@@ -1639,6 +1665,7 @@ def phase_train_flat(runs):
     for name in ("forward", "backward"):
         getattr(dense, f"composite_{name}_cuda").launches = 0
         getattr(flat, f"composite_{name}_flat_cuda").launches = 0
+    reset_preprocess_launches()
     for run, (ref, ref_m) in zip(flats, dense_first):
         got, m = run.run_step(2101, 0, torch.Generator(run.device).manual_seed(11))
         static = run.static_for(2101, True)
@@ -1668,7 +1695,8 @@ def phase_train_flat(runs):
                              "differentiated flat rasterize calls")
     log("train-flat", f"ok: {fwd} flat forward and {bwd} flat backward launches "
         f"for {calls} differentiated rasterize calls, 0 dense")
-    return flats, {"flat_forward": fwd, "flat_backward": bwd}
+    return flats, {"flat_forward": fwd, "flat_backward": bwd,
+                   **read_preprocess_launches()}
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1922,6 +1950,11 @@ def phase_determinism(scenes, runs):
     """``scenes`` and ``runs`` hold the dense and the flat ones."""
     import torch
 
+    from gftorf_tpu_torch.render.kernels import preprocess as kpre
+
+    pre0 = (kpre.preprocess_forward_cuda.launches,
+            kpre.preprocess_backward_cuda.launches)
+
     for s in scenes:
         a = outputs_of(*s.render(5 if s.name == "ftorf" else 1))
         b = outputs_of(*s.render(5 if s.name == "ftorf" else 1))
@@ -1943,6 +1976,192 @@ def phase_determinism(scenes, runs):
             f"training step (random bg, one generator seed) run twice: "
             f"{len(outs[0])} output tensors (parameters, Adam moments, "
             "densify stats, metrics) bitwise equal")
+    pre = (kpre.preprocess_forward_cuda.launches - pre0[0],
+           kpre.preprocess_backward_cuda.launches - pre0[1])
+    if runs and runs[0].device.type == "cuda" and not all(pre):
+        raise AssertionError(f"the preprocess kernels were not on the repeated "
+                             f"paths: {pre} launches")
+    log("determinism", f"ok: the repeats ran {pre[0]} preprocess forward and "
+        f"{pre[1]} backward kernel launches")
+
+
+# ---------------------------------------------------------------- preprocess
+
+# Iteration of the captured steps: active SH degree min(3001 // 1000, 3).
+PRE_ITERATION = 3001
+
+
+def preprocess_calls(run, it=PRE_ITERATION, idx=0):
+    """The arguments of every preprocess call of one step of ``run``
+    (outside any counted window), detached."""
+    import torch
+
+    rasterize = sys.modules["gftorf_tpu_torch.render.rasterize"]
+    real, calls = rasterize.preprocess, []
+
+    def spy(*args):
+        calls.append(tuple(a.detach() if torch.is_tensor(a) else a
+                           for a in args))
+        return real(*args)
+
+    rasterize.preprocess = spy
+    try:
+        run.run_step(it, idx)
+    finally:
+        rasterize.preprocess = real
+    return calls
+
+
+def preprocess_leaves(args):
+    """``args`` with every float tensor input a fresh leaf that needs a
+    gradient (the offsets too, so their two-pass sums run)."""
+    import torch
+
+    return tuple(a.detach().clone().requires_grad_(True)
+                 if torch.is_tensor(a) and a.is_floating_point() else a
+                 for a in args)
+
+
+def preprocess_bytes(args, backward):
+    """Bytes a preprocess kernel moves for one call: the rows it reads
+    (the SH coefficients up to the active degree, two phasor channels) and
+    writes (csrc/preprocess.cu's notes)."""
+    means3d, scales, rot, opac, shs, shs_p = args[:6]
+    ndc, degree, pp, cov = args[8], args[11], args[13], args[14]
+    P, k = means3d.shape[0], (degree + 1) ** 2
+    row = 12 + (24 if cov is not None else 28)
+    row += 0 if shs is None else 12 * k
+    row += 0 if shs_p is None else 8 * k
+    row += 0 if shs_p is not None or pp is None else 8
+    if not backward:
+        return P * (row + 4 + 8 + 97)  # + opacity, ndc; 19 floats, rect, tiles, valid
+    grads = 12 + 8 + (24 if cov is not None else 28)
+    grads += sum(x[0].numel() * 4 for x in (shs, shs_p) if x is not None)
+    grads += 0 if shs_p is not None or pp is None else pp[0].numel() * 4
+    return P * (row + 72 + grads)  # + the cotangents' 18 floats
+
+
+def phase_preprocess(device, runs):
+    """The preprocess kernels against their plain version (module
+    docstring, 5); returns their entries of the ``kernels`` line."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import test_torch_preprocess_kernel as T
+
+    from gftorf_tpu_torch.render import preprocess as pre_mod
+    from gftorf_tpu_torch.render.kernels import preprocess as kpre
+
+    errs = []
+    for degree, kw in T.CASES:
+        errs.append(T.check_case(degree, kw, device))
+    log("preprocess", f"ok: {len(T.CASES)} cases of tests/test_torch_"
+        f"preprocess_kernel.py (degrees 0-3, every branch, the edge rows): "
+        f"worst forward error {max(e[0] for e in errs):.3g}, gradient "
+        f"{max(e[1] for e in errs):.3g} of the row scale")
+
+    ftorf, torf = runs[0], runs[1]
+    shapes = {"ftorf": preprocess_calls(ftorf)[0],
+              "torf colour": preprocess_calls(torf)[1]}
+    worst = dict.fromkeys(PREPROCESS, 0.0)
+    timed = {}
+    for what, args in shapes.items():
+        P, degree = args[0].shape[0], args[11]
+        if what == "ftorf" and (P != ftorf.render_bucket or degree != 3
+                                or args[5] is None):
+            raise AssertionError(f"ftorf training shapes: P={P}, degree "
+                                 f"{degree}, shs_p {args[5] is not None}")
+        leafy = preprocess_leaves(args)
+        ref_out, ref_g = T.run(pre_mod.preprocess_plain, leafy, 11)
+        got_out, got_g = T.run(pre_mod.preprocess_cuda, leafy, 11)
+        again_out, again_g = T.run(pre_mod.preprocess_cuda, leafy, 11)
+        err_f = T.compare(got_out, ref_out, args[10], what)
+        err_b = T.compare_grads(got_g, ref_g, what)
+        same = (all(torch.equal(getattr(got_out, f), getattr(again_out, f))
+                    for f in got_out._fields)
+                and all(torch.equal(got_g[n], again_g[n]) for n in got_g))
+        if not same:
+            raise AssertionError(f"{what}: the preprocess kernels are not "
+                                 "bitwise repeatable")
+        worst["preprocess_forward"] = max(worst["preprocess_forward"], err_f)
+        worst["preprocess_backward"] = max(worst["preprocess_backward"], err_b)
+        flips = int(((got_out.rect != ref_out.rect).any(-1)
+                     | (got_out.valid != ref_out.valid)).sum())
+        # The values that decide the cull and the tile rect carry the CPU
+        # plain version's bits (csrc/preprocess_row.cuh's notes).
+        cam = args[9]
+        cpu_args = tuple(a.cpu() if torch.is_tensor(a) else a for a in args)
+        cpu_args = cpu_args[:9] + (type(cam)(*(
+            x.cpu() if torch.is_tensor(x) else x for x in cam)),) + cpu_args[10:]
+        with torch.no_grad():
+            cpu_out = pre_mod.preprocess_plain(*cpu_args)
+        cpu_diff = {f: int((getattr(got_out, f).detach().cpu()
+                            != getattr(cpu_out, f)).sum())
+                    for f in ("mean2d", "depth_view", "radius", "rect",
+                              "tiles_touched", "valid")}
+        if any(cpu_diff.values()):
+            raise AssertionError(f"{what}: the kernel's entries that differ "
+                                 f"from the CPU plain version's: {cpu_diff}")
+        log("preprocess", f"{what} training render (P={P}, degree {degree}, "
+            f"shs_p {args[5] is not None}, cov3d_precomp {args[14] is not None}, "
+            f"{int(ref_out.valid.sum())} valid): forward max err {err_f:.3g}, "
+            f"{flips} rows' rect or valid differ (at a tile boundary) from "
+            f"the plain version on the card, none of mean2d, depth_view, "
+            f"radius, rect, tiles_touched, valid from it on the CPU; "
+            f"gradients of {sorted(got_g)} max err {err_b:.3g} of the row "
+            "scale; twice bitwise equal")
+
+        # Times at these shapes: the kernels' wrappers against the plain
+        # forward and autograd's backward through it.
+        out = pre_mod.preprocess_plain(*leafy)
+        cot = T.cotangents(out, 12)
+        loss = sum((getattr(out, f) * cot[f]).sum() for f in T.DIFF_FIELDS)
+        ls = list(T.leaves(leafy).values())
+        cots = [cot[f] for f in ("mean2d", "depth_view", "conic", "rgb",
+                                 "phasor", "dist", "dist_ndc")]
+        wanted = set(T.leaves(leafy))
+        fwd_args = args[:12] + args[13:]
+        with torch.no_grad():
+            ms = {
+                "preprocess_forward": time_ms(
+                    lambda: kpre.preprocess_forward_cuda(*fwd_args), 50),
+                "preprocess_backward": time_ms(
+                    lambda: kpre.preprocess_backward_cuda(
+                        *args[:12], cots, wanted, args[13], args[14]), 50),
+            }
+            plain_fwd = time_ms(lambda: pre_mod.preprocess_plain(*args), 10)
+        plain_bwd = time_ms(lambda: torch.autograd.grad(
+            loss, ls, retain_graph=True, allow_unused=True), 10)
+        timed[what] = (ms, {"preprocess_forward": plain_fwd,
+                            "preprocess_backward": plain_bwd},
+                       {k: bound(preprocess_bytes(args, k.endswith("backward")), 0)
+                        for k in PREPROCESS})
+        for k in PREPROCESS:
+            b_ms, _, _, _ = timed[what][2][k]
+            log("preprocess", f"{k} at the {what} shapes: {ms[k]:.4f} ms on "
+                f"{card_line()}; plain {timed[what][1][k]:.3f} ms; bound "
+                f"{b_ms:.4f} ms ({preprocess_bytes(args, k.endswith('backward'))} "
+                f"B at {PEAK_BYTES_PER_S / 1e12:.2f} TB/s)")
+    for k in PREPROCESS:
+        occ = kpre.occupancy(3, k.endswith("backward"))
+        log("preprocess", f"{k} degree-3 instance: {occ['blocks_per_sm']} "
+            f"block(s) of 256 threads per SM, {occ['registers']} registers, "
+            f"{occ['spill_bytes']} B local, {occ['shared_bytes']} B shared")
+    torch.cuda.synchronize()
+    log("preprocess", "ok")
+    ms, plain_ms, bounds = timed["ftorf"]
+    # The offsets' second pass is timed inside preprocess_backward's ms.
+    return [dict(name=k, route="cuda",
+                 source="gftorf_tpu_torch/csrc/preprocess.cu",
+                 replaces=REPLACES[k], launches=0, max_abs_err=worst[k],
+                 ms=ms[k], plain_ms=plain_ms[k], bound_ms=bounds[k][0],
+                 bound_by="bytes", library_ms=None) for k in PREPROCESS] + [
+        dict(name=OFFSETS_SUM, route="cuda",
+             source="gftorf_tpu_torch/csrc/preprocess.cu",
+             replaces=REPLACES[OFFSETS_SUM], launches=0,
+             max_abs_err=worst["preprocess_backward"], ms=None, plain_ms=None,
+             bound_ms=None, bound_by="in preprocess_backward's ms",
+             library_ms=None)]
 
 
 # ---------------------------------------------------------------- trainer
@@ -1999,6 +2218,23 @@ def reset_launches():
                flat.composite_forward_flat_cuda, flat.composite_backward_flat_cuda,
                dense.check_backward_fits):
         fn.launches = 0
+    reset_preprocess_launches()
+
+
+def reset_preprocess_launches():
+    from gftorf_tpu_torch.render.kernels import preprocess as kpre
+
+    kpre.preprocess_forward_cuda.launches = 0
+    kpre.preprocess_backward_cuda.launches = 0
+    kpre.preprocess_backward_cuda.sum_launches = 0
+
+
+def read_preprocess_launches():
+    from gftorf_tpu_torch.render.kernels import preprocess as kpre
+
+    return {"preprocess_forward": kpre.preprocess_forward_cuda.launches,
+            "preprocess_backward": kpre.preprocess_backward_cuda.launches,
+            OFFSETS_SUM: kpre.preprocess_backward_cuda.sum_launches}
 
 
 def read_launches():
@@ -2008,7 +2244,19 @@ def read_launches():
             "dense_backward": dense.composite_backward_cuda.launches,
             "flat_forward": flat.composite_forward_flat_cuda.launches,
             "flat_backward": flat.composite_backward_flat_cuda.launches,
-            FIT_CHECK: dense.check_backward_fits.launches}
+            FIT_CHECK: dense.check_backward_fits.launches,
+            **read_preprocess_launches()}
+
+
+def check_preprocess_launches(launches, what):
+    """One preprocess forward launch per render and one backward per
+    trained render, where every render composites once (dense or flat)."""
+    renders = launches["dense_forward"] + launches["flat_forward"]
+    trained = launches["dense_backward"] + launches["flat_backward"]
+    got = (launches["preprocess_forward"], launches["preprocess_backward"])
+    if got != (renders, trained) or not renders:
+        raise AssertionError(f"{what}: preprocess launches {got} for {renders} "
+                             f"renders, {trained} of them trained")
 
 
 def write_trainer_datasets(device, width=320, height=240, n_ftorf=16, n_torf=8):
@@ -2270,6 +2518,8 @@ def phase_trainer(device, width=320, height=240, n_ftorf=16, iters=260,
     if not (launches["dense_forward"] and launches["dense_backward"]):
         raise AssertionError(f"ftorf Trainer run: dense kernels not launched: "
                              f"{launches}")
+    if device.type == "cuda":
+        check_preprocess_launches(launches, "ftorf Trainer run")
     if device.type == "cuda" and len(check.ms) != 1:
         raise AssertionError(f"the start-up fit check ran {len(check.ms)} times")
     events = [it for it in range(1, iters + 1)
@@ -2356,6 +2606,8 @@ def phase_trainer(device, width=320, height=240, n_ftorf=16, iters=260,
     if not (launches["dense_forward"] and launches["dense_backward"]):
         raise AssertionError(f"torf Trainer run: dense kernels not launched: "
                              f"{launches}")
+    if device.type == "cuda":
+        check_preprocess_launches(launches, "torf Trainer run")
     if (len(tdens.ms) != 2 or len(evals) != 1
             or (device.type == "cuda" and len(tcheck.ms) != 1)):
         raise AssertionError(f"torf run: {len(tdens.ms)} densify events, "
@@ -2398,6 +2650,8 @@ def phase_trainer(device, width=320, height=240, n_ftorf=16, iters=260,
                                       and launches["flat_backward"]):
         raise AssertionError(f"flat fallback did not engage: flat_stream "
                              f"{tr.flat_stream}, launches {launches}")
+    if device.type == "cuda":
+        check_preprocess_launches(launches, "flat fallback Trainer run")
     log("trainer", f"flat fallback: max_per_tile_limit 256, flat_stream "
         f"{tr.flat_stream} (auto {tr._flat_auto}) from iteration 1, 12 "
         f"iterations, loss {recs[0]['loss']:.5g} -> {recs[-1]['loss']:.5g}, "
@@ -3476,7 +3730,7 @@ def phase_sharded(device, runs):
     wall = time.perf_counter() - t0
 
     digests = {}
-    launches = dict.fromkeys(KERNELS, 0)
+    launches = dict.fromkeys(KERNELS + PREPROCESS + (OFFSETS_SUM,), 0)
     for results in (res2, res4):
         for i, case in enumerate(results[0]):
             label = case["label"]
@@ -3490,7 +3744,7 @@ def phase_sharded(device, runs):
                         and n[f"{other}_forward"] == n[f"{other}_backward"] == 0):
                     raise AssertionError(f"{label}: rank {r} launched {n}, want "
                                          f"{renders} {kind} pairs")
-                for k in KERNELS:
+                for k in KERNELS + PREPROCESS + (OFFSETS_SUM,):
                     launches[k] += n[k]
             ms = [statistics.median(r[i]["ms"][1:] or r[i]["ms"]) for r in results]
             losses = [m["loss"] for m in case["metrics"]]
@@ -3658,7 +3912,7 @@ def phase_bench(device, worst, iters=BENCH_ITERS, warm=BENCH_WARM,
     from gftorf_tpu_torch import bench
     from gftorf_tpu_torch.render.kernels import dense
 
-    launches = dict.fromkeys(KERNELS + (FIT_CHECK,), 0)
+    launches = dict.fromkeys(KERNELS + (FIT_CHECK,) + PREPROCESS + (OFFSETS_SUM,), 0)
     reset_launches()
     with capturing({"forward": (dense, "composite_forward"),
                     "backward": (dense, "composite_backward")}) as cap, \
@@ -4623,9 +4877,11 @@ def main():
     flat_scenes = phase_serve_flat(scenes)
     runs, launches = phase_train(device)
     flat_runs, flat_launches = phase_train_flat(runs)
-    launches.update(flat_launches)
+    launches = {k: launches.get(k, 0) + flat_launches.get(k, 0)
+                for k in launches.keys() | flat_launches.keys()}
     phase_train_vs_cpu(device)
     phase_deep_tile(device)
+    pre_kernels = phase_preprocess(device, runs)
     phase_determinism(scenes + flat_scenes, runs + flat_runs)
     trainer_launches = phase_trainer(device, drift="--drift" in sys.argv[1:])
     phase_events(device, os.path.join(TRAINER_DIR, "ftorf"),
@@ -4642,6 +4898,11 @@ def main():
                            bench_launches)
     kernels.append(phase_fit_check(device, sum(
         n[FIT_CHECK] for n in (trainer_launches, render_launches, bench_launches))))
+    for k in pre_kernels:  # the main path's launches, summed as phase_timing's
+        k["launches"] = sum(n[k["name"]] for n in (
+            launches, render_launches, sharded_launches, trainer_launches,
+            bench_launches))
+    kernels.extend(pre_kernels)
     if "--profile" in sys.argv[1:]:
         phase_profile(scenes + flat_scenes)
         phase_profile_train(runs[0])

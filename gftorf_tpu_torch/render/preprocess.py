@@ -1,11 +1,18 @@
 """Per-Gaussian preprocessing: cull, project, build conics and features.
 
 Port of ``gftorf_tpu/render/preprocess.py`` (the reference's preprocess
-kernel, cuda_rasterizer/forward.cu:251-419) as batched torch ops over
-(P, ...) tensors. The clamp/clip/stop-gradient forms of the JAX version
-are kept so that autograd matches the reference backward
-(backward.cu:265-606); tests/test_torch_rasterize_grad.py holds every
-input's gradient against ``jax.grad``:
+kernel, cuda_rasterizer/forward.cu:251-419). ``preprocess`` dispatches on
+the tensors' device: a CPU tensor takes ``preprocess_plain``, a CUDA
+tensor the hand-written forward and backward kernels of csrc/
+preprocess.cu (``render/kernels/preprocess.py::PreprocessKernel``), or
+the call raises.
+
+``preprocess_plain`` is the specification: batched torch ops over (P, ...)
+tensors. The clamp/clip/stop-gradient forms of the JAX version are kept
+so that autograd matches the reference backward (backward.cu:265-606);
+tests/test_torch_rasterize_grad.py holds every input's gradient against
+``jax.grad``, and tests/test_torch_preprocess_kernel.py the kernels
+against this function on the card:
  - the color and amplitude clamps at 0 are ``clamp(min=0)``;
  - the 1.3*tan(fov) view clip is ``torch.clamp`` (ops/covariance.py);
  - the phase DC removal subtracts a ``.detach()``-ed SH_C0 * sh_p[0];
@@ -31,6 +38,7 @@ from gftorf_tpu_torch.ops.transforms import (
     transform_point_4x3,
     transform_point_4x4,
 )
+from gftorf_tpu_torch.render.kernels.preprocess import PreprocessKernel
 from gftorf_tpu_torch.render.settings import CameraSpec, RasterConfig
 
 
@@ -67,7 +75,78 @@ def preprocess(
     cov3d_precomp: Optional[torch.Tensor] = None,
 ) -> PreprocessOutputs:
     """Preprocess all Gaussians for one camera (same arguments and
-    semantics as the JAX ``preprocess``; see its docstring)."""
+    semantics as the JAX ``preprocess``; see its docstring): on a CPU
+    tensor ``preprocess_plain``, on a CUDA tensor the kernels."""
+    args = (means3d, scales, rotations, opacities, shs, shs_p, phase_offset,
+            dc_offset, means2d_ndc, camera, config, active_sh_degree,
+            colors_precomp, phasors_precomp, cov3d_precomp)
+    if means3d.device.type == "cpu":
+        return preprocess_plain(*args)
+    if means3d.device.type == "cuda":
+        return preprocess_cuda(*args)
+    raise ValueError(f"no preprocess for device {means3d.device}")
+
+
+def preprocess_cuda(means3d, scales, rotations, opacities, shs, shs_p,
+                    phase_offset, dc_offset, means2d_ndc, camera, config,
+                    active_sh_degree, colors_precomp=None,
+                    phasors_precomp=None, cov3d_precomp=None):
+    """``preprocess_plain``'s function through csrc/preprocess.cu: one
+    forward launch, and one backward launch when autograd reaches it. The
+    branch precedences are the plain version's (``shs`` over
+    ``colors_precomp``, ``shs_p`` over ``phasors_precomp``, ``cov3d_precomp``
+    over scale and rotation); an input the plain version would not read is
+    not handed to the kernel, so it gets no gradient either."""
+    P = means3d.shape[0]
+    opacities = opacities.reshape(P)
+
+    def rows(x, used=True):
+        return x.contiguous() if used and x is not None else None
+
+    cov = cov3d_precomp is not None
+    (mean2d, depth_view, conic, rgb, phasor, dist, dist_ndc, radius, rect,
+     tiles_touched, valid) = PreprocessKernel.apply(
+        rows(means3d), rows(scales, not cov), rows(rotations, not cov),
+        rows(opacities), rows(shs), rows(shs_p), phase_offset, dc_offset,
+        rows(means2d_ndc), rows(phasors_precomp, shs_p is None),
+        rows(cov3d_precomp), camera, config, active_sh_degree)
+    if shs is None and colors_precomp is not None:
+        rgb = colors_precomp
+    return PreprocessOutputs(
+        valid=valid,
+        mean2d=mean2d,
+        depth_view=depth_view,
+        conic=conic,
+        opacity=opacities,
+        rgb=rgb,
+        phasor=phasor,
+        dist=dist,
+        dist_ndc=dist_ndc,
+        radius=radius,
+        rect=rect,
+        tiles_touched=tiles_touched,
+    )
+
+
+def preprocess_plain(
+    means3d: torch.Tensor,
+    scales: torch.Tensor,
+    rotations: torch.Tensor,
+    opacities: torch.Tensor,
+    shs: Optional[torch.Tensor],
+    shs_p: Optional[torch.Tensor],
+    phase_offset,
+    dc_offset,
+    means2d_ndc: torch.Tensor,
+    camera: CameraSpec,
+    config: RasterConfig,
+    active_sh_degree: int,
+    colors_precomp: Optional[torch.Tensor] = None,
+    phasors_precomp: Optional[torch.Tensor] = None,
+    cov3d_precomp: Optional[torch.Tensor] = None,
+) -> PreprocessOutputs:
+    """``preprocess`` in batched torch ops: the CPU path, and the
+    specification of the CUDA kernels."""
     P = means3d.shape[0]
     opacities = opacities.reshape(P)
 

@@ -9,7 +9,10 @@ benchmark's traced window, ``chip_smoke.py --profile``) reads the spans.
 
 ``SPANS`` lists every span the package emits, with its layer. A span is
 emitted once per layer call, never inside a loop over Gaussians, tiles
-or parameter leaves.
+or parameter leaves. ``preprocess.backward`` opens in the preprocess
+kernels' autograd backward (``render/kernels/preprocess.py``), on
+autograd's own thread, and only on a CUDA tensor: the plain version's
+backward is autograd's ops, under no span.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ SPANS = (
     ("train_step.update", "losses, update"),
     ("deform.query", "deform query"),
     ("render.preprocess", "preprocess, binning"),
+    ("preprocess.backward", "preprocess, binning"),
     ("render.binning", "preprocess, binning"),
     ("render.composite", "kernels"),
     ("loss.frame", "losses, update"),

@@ -83,7 +83,7 @@ def test_allowed_image_imports_are_where_named():
 
 def test_kernel_sources_and_no_import_time_builds():
     for name in ("dense_forward", "dense_backward", "flat_forward",
-                 "flat_backward"):
+                 "flat_backward", "preprocess"):
         assert (ROOT / "gftorf_tpu_torch" / "csrc" / f"{name}.cu").exists()
     assert (ROOT / "gftorf_tpu_torch" / "csrc" / "warp_cull.cuh").exists()
     for path in SOURCES:
