@@ -26,7 +26,6 @@ from harness.train import (
     dynamic_rows,
     peak_bytes,
     program_config,
-    start_bounds,
     sync,
 )
 
@@ -35,10 +34,10 @@ def served_state(cell, seed: int, device, model_dir: str,
                  cache: str = scenes.CACHE):
     """The cell's config as run, the served state from ``seed``, and the
     seconds spent writing the scene."""
-    src, written = scenes.scene_dir(cell.config_name, cell.scene, cache)
+    src, written = scenes.scene_dir(cell, cache)
     cfg = program_config(cell, src, model_dir, seed)
-    s = state.make_start_state(cfg, start_bounds(cfg, cell.scene), seed,
-                               int(cfg["num_points"]), 0, device)
+    s = cell.layout.start_state(cfg, cell.scene, seed, int(cfg["num_points"]),
+                                0, device)
     return cfg, s, written
 
 
@@ -83,7 +82,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t_start: float,
         cache: str = scenes.CACHE) -> dict:
     from gftorf_tpu_torch import render_sets
     from gftorf_tpu_torch.data.scene import take_frame
-    from gftorf_tpu_torch.render.kernels import dense
+    from gftorf_tpu_torch.render.kernels import dense, flat
 
     tr = cell.traffic
     tmp = tempfile.TemporaryDirectory(prefix="gftorf-bench-")
@@ -111,9 +110,9 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t_start: float,
     outputs = {}
     out = {"setup_s": setup_s, "scene_write_s": written}
     if trace:
-        out["reading"] = _traced_window(server, int(tr["trace_frames"]), cfg,
-                                        render_sets, dense, device, outputs,
-                                        checked)
+        out["reading"] = _traced_window(
+            server, int(tr["trace_frames"]), cfg, render_sets,
+            CompositeCalls(dense, flat), device, outputs, checked)
         done = int(tr["trace_frames"])
     else:
         latencies, window = closed_loop(server, len(requests), outputs,
@@ -134,8 +133,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t_start: float,
         gc.collect()
         if device.type == "cuda":
             torch.cuda.empty_cache()
-        from reference import driver
-
+        driver = cell.layout.reference()
         sc = driver.read_scene(cfg["source_path"], cfg, device)
         order = sorted(outputs)
 
@@ -157,14 +155,13 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t_start: float,
     return out
 
 
-def _traced_window(server, n_frames, cfg, render_sets, dense, device,
+def _traced_window(server, n_frames, cfg, render_sets, calls, device,
                    outputs, checked):
     from harness.trace import Reading, profiler_events
 
     trainer = server.trainer
     live = dynamic_rows(trainer.model)
     cap = trainer.model.aux.alive.shape[0]
-    calls = CompositeCalls(dense)
     deform = DeformCount(render_sets, cfg, backward=False,
                          rows_of=lambda: (trainer.deform_bucket or cap, live))
 
@@ -188,7 +185,7 @@ def _traced_window(server, n_frames, cfg, render_sets, dense, device,
         deform.uninstall()
     cpu, dev = profiler_events(prof)
     reading = Reading("serve", cpu, dev, n_frames, calls.work(),
-                      {"forward": calls.n_forward}, deform.ops,
+                      calls.n, deform.ops,
                       {"forward": "dense_forward_kernel"})
     calls.release()
     return reading

@@ -20,8 +20,9 @@ PROGRAM_SPANS = ("train_step.forward", "train_step.backward",
                  "train_step.update")
 EVENT_SPANS = ("bench.densify", "bench.reset")
 TOP = 10
-# Compositing calls a traced window keeps, each way, to count their work.
+# Compositing calls a traced window keeps, of each kind, to count their work.
 KEPT_CALLS = 4
+KINDS = ("forward", "backward", "flat_forward", "flat_backward")
 
 
 def _union(intervals: List[Tuple[float, float]]) -> List[Tuple[float, float]]:
@@ -64,76 +65,102 @@ def profiler_events(prof):
 
 
 class CompositeCalls:
-    """Counts the dense compositing calls of the traced window and keeps
-    the inputs and outputs of the first ``keep`` forward and backward ones,
-    to count their work once the window has closed. Installed in place of
-    the program's ``composite_forward`` / ``composite_backward``."""
+    """Counts the compositing calls of the traced window, dense
+    (``forward``, ``backward``) and flat (``flat_forward``,
+    ``flat_backward``), and keeps the inputs and outputs of the first
+    ``keep`` calls of each kind, to count their work once the window has
+    closed. Installed in place of the program's ``composite_forward`` /
+    ``composite_backward`` and ``composite_forward_flat`` /
+    ``composite_backward_flat``."""
 
-    def __init__(self, dense_module, keep: int = KEPT_CALLS):
-        self.mod = dense_module
+    def __init__(self, dense_module, flat_module, keep: int = KEPT_CALLS):
+        self.dense, self.flat = dense_module, flat_module
         self.keep = keep
-        self.forward: List[tuple] = []
-        self.backward: List[tuple] = []
-        self.n_forward = self.n_backward = 0
+        self.kept: Dict[str, List[tuple]] = {k: [] for k in KINDS}
+        self.n: Dict[str, int] = dict.fromkeys(KINDS, 0)
         self._orig = (dense_module.composite_forward,
-                      dense_module.composite_backward)
+                      dense_module.composite_backward,
+                      flat_module.composite_forward_flat,
+                      flat_module.composite_backward_flat)
+
+    def _count(self, kind: str, item) -> None:
+        self.n[kind] += 1
+        if len(self.kept[kind]) < self.keep:
+            self.kept[kind].append(item)
 
     def install(self):
-        fwd, bwd = self._orig
+        fwd, bwd, flat_fwd, flat_bwd = self._orig
 
         @functools.wraps(fwd)
         def forward(feat_tl, bg_tiles, counts, origins, config):
             out, contrib = fwd(feat_tl, bg_tiles, counts, origins, config)
-            self.n_forward += 1
-            if len(self.forward) < self.keep:
-                self.forward.append((feat_tl, counts, origins, config, contrib))
+            self._count("forward", (feat_tl, counts, origins, config, contrib))
             return out, contrib
 
         @functools.wraps(bwd)
         def backward(feat_tl, bg_tiles, out_res, g, counts, origins, config,
                      has_flow):
-            self.n_backward += 1
-            if len(self.backward) < self.keep:
-                self.backward.append((feat_tl, has_flow))
+            self._count("backward", (feat_tl, has_flow))
             return bwd(feat_tl, bg_tiles, out_res, g, counts, origins, config,
                        has_flow)
 
-        self.mod.composite_forward = forward
-        self.mod.composite_backward = backward
+        @functools.wraps(flat_fwd)
+        def forward_flat(feat_fl, bg_tiles, tile_start, tile_count, origins,
+                         config):
+            out, contrib = flat_fwd(feat_fl, bg_tiles, tile_start, tile_count,
+                                    origins, config)
+            self._count("flat_forward", (feat_fl, tile_start, tile_count,
+                                         origins, config, contrib))
+            return out, contrib
+
+        @functools.wraps(flat_bwd)
+        def backward_flat(feat_fl, bg_tiles, out_res, g, tile_start,
+                          tile_count, origins, config, has_flow):
+            self._count("flat_backward", (feat_fl, has_flow))
+            return flat_bwd(feat_fl, bg_tiles, out_res, g, tile_start,
+                            tile_count, origins, config, has_flow)
+
+        self.dense.composite_forward = forward
+        self.dense.composite_backward = backward
+        self.flat.composite_forward_flat = forward_flat
+        self.flat.composite_backward_flat = backward_flat
 
     def uninstall(self):
-        self.mod.composite_forward, self.mod.composite_backward = self._orig
+        (self.dense.composite_forward, self.dense.composite_backward,
+         self.flat.composite_forward_flat,
+         self.flat.composite_backward_flat) = self._orig
 
     def work(self) -> Dict[str, Tuple[float, float, int]]:
-        """For "forward" and "backward": (least seconds summed over the kept
-        calls, fp32 operations summed over them, calls kept). A backward
-        call is counted with the contributions of its forward call."""
+        """For each kind: (least seconds summed over the kept calls, fp32
+        operations summed over them, calls kept). A backward call is
+        counted with the inputs and contributions of its forward call."""
         out = {}
-        least = ops = 0.0
-        for feat, counts, origins, cfg, contrib in self.forward:
-            b, o = peaks.work_of(feat, counts, origins, cfg, contrib)
-            least += peaks.least_seconds(b, o)
-            ops += o
-        out["forward"] = (least, ops, len(self.forward))
-        by_ptr = {f[0].data_ptr(): f for f in self.forward}
-        least = ops = 0.0
-        kept = 0
-        for feat, has_flow in self.backward:
-            f = by_ptr.get(feat.data_ptr())
-            if f is None:
-                continue
-            _, counts, origins, cfg, contrib = f
-            b, o = peaks.work_of(feat, counts, origins, cfg, contrib,
-                                 backward=True, has_flow=has_flow)
-            least += peaks.least_seconds(b, o)
-            ops += o
-            kept += 1
-        out["backward"] = (least, ops, kept)
+        for fwd, bwd, count in (("forward", "backward", peaks.work_of),
+                                ("flat_forward", "flat_backward",
+                                 peaks.flat_work_of)):
+            least = ops = 0.0
+            for *inputs, contrib in self.kept[fwd]:
+                b, o = count(*inputs, contrib)
+                least += peaks.least_seconds(b, o)
+                ops += o
+            out[fwd] = (least, ops, len(self.kept[fwd]))
+            by_ptr = {f[0].data_ptr(): f for f in self.kept[fwd]}
+            least = ops = 0.0
+            kept = 0
+            for feat, has_flow in self.kept[bwd]:
+                f = by_ptr.get(feat.data_ptr())
+                if f is None:
+                    continue
+                b, o = count(*f, backward=True, has_flow=has_flow)
+                least += peaks.least_seconds(b, o)
+                ops += o
+                kept += 1
+            out[bwd] = (least, ops, kept)
         return out
 
     def release(self):
-        self.forward.clear()
-        self.backward.clear()
+        for calls in self.kept.values():
+            calls.clear()
 
 
 class Reading:

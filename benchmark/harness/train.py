@@ -26,6 +26,9 @@ from torch.profiler import record_function
 
 from harness import checks, scenes, state
 from harness.trace import CompositeCalls
+# The default layout's start box and cadence, which the state and densify
+# tests read here.
+from layouts.tof import start_bounds, start_meta  # noqa: F401
 from traffic import peaks
 
 
@@ -33,28 +36,6 @@ def program_config(cell, scene_dir: str, model_dir: str, seed: int) -> dict:
     """The cell's config with the keys the harness sets at run time."""
     return dict(cell.config, source_path=scene_dir, model_path=model_dir,
                 seed=seed % 2**32)
-
-
-def start_meta(cfg: dict, start: int) -> dict:
-    """The Trainer's host state at iteration ``start`` as its own cadence
-    leaves it: the SH degree raised every 1,000 iterations, and past
-    ``tof_iters`` the colour loss on and the opacity reset interval
-    halved."""
-    flipped = 0 < cfg["tof_iters"] <= start
-    interval = cfg["opacity_reset_interval"]
-    return {"iteration": start,
-            "active_sh_degree": min(start // 1000, cfg["sh_degree"]),
-            "lambda_color": 1.0 if flipped else cfg["lambda_color"],
-            "opacity_reset_interval": int(interval / 2) if flipped else interval}
-
-
-def start_bounds(cfg: dict, scene: dict):
-    """The ToF frustum's bounds, the random init's box."""
-    dr = scene["depth_range"]
-    f = 0.9 * scene["width"]
-    return state.frustum_bounds(f, f, scene["width"], scene["height"],
-                                cfg.get("min_depth_fac", 0.05) * dr * 0.9,
-                                cfg.get("max_depth_fac", 0.55) * dr * 1.1)
 
 
 def capacity_for(n: int) -> int:
@@ -138,13 +119,14 @@ def start_checkpoint(cell, seed: int, device, tmp: str,
     """The cell's config as run, its start state from ``seed`` (the
     benchmark's own tensors), that state written as a Trainer checkpoint
     under ``tmp``, and the seconds spent writing the scene."""
-    src, written = scenes.scene_dir(cell.config_name, cell.scene, cache)
+    src, written = scenes.scene_dir(cell, cache)
     ckpt = os.path.join(tmp, "start.npz")
     cfg = program_config(cell, src, os.path.join(tmp, "model"), seed)
     start = int(cell.traffic["start_iteration"])
-    s = state.make_start_state(cfg, start_bounds(cfg, cell.scene), seed,
-                               capacity_for(cfg["num_points"]), start, device)
-    state.write_checkpoint(ckpt, s, cfg["D"], start_meta(cfg, start))
+    s = cell.layout.start_state(cfg, cell.scene, seed,
+                                capacity_for(cfg["num_points"]), start, device)
+    state.write_checkpoint(ckpt, s, cfg["D"],
+                           cell.layout.start_meta(cfg, start))
     return cfg, ckpt, s, written
 
 
@@ -186,7 +168,7 @@ def window_target(seed: int, it0: int, within: int) -> int:
 def run(cell, seed: int, seconds: float, trace: bool, device, t_start: float,
         cache: str = scenes.CACHE) -> dict:
     from gftorf_tpu_torch.config import Config
-    from gftorf_tpu_torch.render.kernels import dense
+    from gftorf_tpu_torch.render.kernels import dense, flat
     from gftorf_tpu_torch.train import loop
     from gftorf_tpu_torch.train import step as step_module
     from gftorf_tpu_torch.train.loop import Trainer
@@ -215,7 +197,8 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t_start: float,
     out = {"setup_s": setup_s, "scene_write_s": written}
     try:
         if trace:
-            out["reading"] = _traced_window(trainer, events, cfg, tr, dense,
+            out["reading"] = _traced_window(trainer, events, cfg, tr,
+                                            CompositeCalls(dense, flat),
                                             step_module, device)
             units = trainer.iteration - it0
         else:
@@ -258,8 +241,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t_start: float,
         gc.collect()
         if device.type == "cuda":
             torch.cuda.empty_cache()
-        from reference import driver
-
+        driver = cell.layout.reference()
         sc = driver.read_scene(cfg["source_path"], cfg, device)
         ref_start = driver.start(start_state.params, start_state.aux,
                                  start_state.deform, start_state.step)
@@ -317,7 +299,7 @@ def lowered(fn):
         return fn()
 
 
-def _traced_window(trainer, events, cfg, tr, dense, step_module, device):
+def _traced_window(trainer, events, cfg, tr, calls, step_module, device):
     from harness.trace import Reading, profiler_events
 
     n_iters = int(tr["trace_iterations"])
@@ -331,7 +313,6 @@ def _traced_window(trainer, events, cfg, tr, dense, step_module, device):
         return trainer.deform_bucket or cap, live["rows"]
 
     events.on_event = on_event
-    calls = CompositeCalls(dense)
     deform = DeformCount(step_module, cfg, backward=True, rows_of=rows_of)
     calls.install()
     deform.install()
@@ -351,8 +332,7 @@ def _traced_window(trainer, events, cfg, tr, dense, step_module, device):
         deform.uninstall()
         events.on_event = None
     cpu, dev = profiler_events(prof)
-    reading = Reading("train", cpu, dev, n_iters, calls.work(),
-                      {"forward": calls.n_forward, "backward": calls.n_backward},
+    reading = Reading("train", cpu, dev, n_iters, calls.work(), calls.n,
                       deform.ops, {"forward": "dense_forward_kernel",
                                    "backward": "dense_backward_kernel"})
     calls.release()

@@ -1,4 +1,5 @@
-"""Peaks of one H100 and the work of the compositing kernels.
+"""Peaks of one H100 and the work of the compositing kernels, dense and
+flat.
 
 Copied from ``chip_smoke.py`` at commit 518578d (``PEAK_*``, ``OPS_*``,
 ``work_of`` and ``bound``), with the blend thresholds of
@@ -26,18 +27,15 @@ OPS_CONTRIB_BWD, OPS_FLOW_BWD, OPS_DD_BWD = 96, 12, 20
 ALPHA_EPS = 1.0 / 255.0
 ALPHA_MAX = 0.99
 T_STOP = 1e-4
+# Pairs (pixel, lane) a step of ``flat_work_of`` holds at most, past one tile.
+FLAT_PAIRS = 1 << 25
 
 
-def work_of(feat_tl, counts, origins, cfg, contrib, backward=False,
-            has_flow=False):
-    """Bytes a dense compositing call must move and fp32 operations it must
-    do on these inputs: rows up to each tile's last evaluated instance,
-    pairs evaluated up to each pixel's early exit, contributing pairs. The
-    forward reads the rows and bg and writes the (T, PIX, 32) block and the
-    (T, L) counts; the backward also reads that block and the cotangent,
-    and writes the (T, L, 24) gradient. ``cfg`` needs ``tile_pixels``,
-    ``tile_w``, ``width``, ``height`` and ``need_dd``."""
-    T, L, C = feat_tl.shape
+def _pairs(feat_tl, counts, origins, cfg):
+    """(rows, evaluated) of a (T, L, 24) block of tiles with ``counts``
+    instances each: rows up to each tile's last evaluated instance, and
+    pairs evaluated up to each pixel's early exit, 16 tiles at a time."""
+    T, L, _ = feat_tl.shape
     pix, tw = cfg.tile_pixels, cfg.tile_w
     pid = torch.arange(pix, device=feat_tl.device)
     lane = torch.arange(L, device=feat_tl.device)
@@ -63,8 +61,13 @@ def work_of(feat_tl, counts, origins, cfg, contrib, backward=False,
         n_eval = torch.where(inside, n_eval, 0)
         evaluated += int(n_eval.sum())
         rows += int(n_eval.amax(-1).sum())
-    contributing = int(contrib.sum())
-    out_rows, ints = T * L, T * 3
+    return rows, evaluated
+
+
+def _totals(rows, evaluated, contributing, out_rows, ints, T, C, cfg,
+            backward, has_flow):
+    """Bytes and fp32 operations of a compositing call from its counts."""
+    pix = cfg.tile_pixels
     if backward:
         nbytes = 4 * (rows * C + ints + T * pix * (12 + 32 + 32) + out_rows * C)
         per_pair = (OPS_CONTRIB_BWD + (OPS_FLOW_BWD if has_flow else 0)
@@ -75,6 +78,47 @@ def work_of(feat_tl, counts, origins, cfg, contrib, backward=False,
         ops = (OPS_EVAL * evaluated + OPS_CONTRIB * contributing
                + (OPS_DD * contributing if cfg.need_dd else 0))
     return nbytes, ops
+
+
+def work_of(feat_tl, counts, origins, cfg, contrib, backward=False,
+            has_flow=False):
+    """Bytes a dense compositing call must move and fp32 operations it must
+    do on these inputs: rows up to each tile's last evaluated instance,
+    pairs evaluated up to each pixel's early exit, contributing pairs. The
+    forward reads the rows and bg and writes the (T, PIX, 32) block and the
+    (T, L) counts; the backward also reads that block and the cotangent,
+    and writes the (T, L, 24) gradient. ``cfg`` needs ``tile_pixels``,
+    ``tile_w``, ``width``, ``height`` and ``need_dd``."""
+    T, L, C = feat_tl.shape
+    rows, evaluated = _pairs(feat_tl, counts, origins, cfg)
+    return _totals(rows, evaluated, int(contrib.sum()), T * L, T * 3, T, C,
+                   cfg, backward, has_flow)
+
+
+def flat_work_of(feat_fl, tile_start, tile_count, origins, cfg, contrib,
+                 backward=False, has_flow=False):
+    """``work_of`` for a flat compositing call on the (K_pad, 24) stream,
+    tile ``t``'s instances at rows ``tile_start[t]`` on, ``tile_count[t]``
+    of them, every other row padding. The same pairs as the dense call on
+    the same tiles; it reads ``tile_start`` beside the counts and origins,
+    and writes the counts and the gradient rows of the stream's instances
+    only, not of its padding. Tiles are cut from the stream a few at a time,
+    so a deep tile takes no more memory than its own pairs."""
+    T, C = tile_count.shape[0], feat_fl.shape[1]
+    deepest = max(1, int(tile_count.max())) if T else 1
+    step = max(1, min(16, FLAT_PAIRS // (cfg.tile_pixels * deepest)))
+    lane = torch.arange(deepest, device=feat_fl.device)
+    rows = evaluated = 0
+    for t0 in range(0, T, step):
+        sl = slice(t0, min(T, t0 + step))
+        present = lane < tile_count[sl, None]
+        slot = torch.where(present, tile_start[sl, None].long() + lane, 0)
+        r, e = _pairs(feat_fl[slot], tile_count[sl], origins[sl], cfg)
+        rows += r
+        evaluated += e
+    instances = int(tile_count.sum())
+    return _totals(rows, evaluated, int(contrib.sum()), instances, T * 4, T,
+                   C, cfg, backward, has_flow)
 
 
 def least_seconds(nbytes: int, ops: int) -> float:
