@@ -122,7 +122,9 @@ Phases, each printing lines tagged with its name and raising on failure:
             tree complete, the saved PLY and deform_model.npz rendering the
             Trainer's frame (atol 1e-4, rtol 1e-3), the checkpoint resuming
             to an equal state, the start-up fit check run once, both dense
-            kernels launched in the run. Then
+            kernels launched in the run, the records' occupancy counters
+            (instances binned, deepest tile, flat stream) consistent with
+            the launches, and printed. Then
             configs/torf.json as shipped (colour 640x480 at
             color_scale_factor 0.5, no colour flag overridden) for 30
             iterations (two cameras, regions ("dynamic",), densify at 20
@@ -2432,6 +2434,30 @@ def check_resume(tr, path):
     return len(a)
 
 
+def check_occupancy(recs, launches, what):
+    """The occupancy counters of the Trainer's records (``rendered``,
+    ``tile_max``, ``flat``): every step binned instances, its deepest tile
+    holds no more than were binned, and a step took the flat stream exactly
+    when the run launched the flat forward. Returns a summary for the log
+    and the records that took the flat stream."""
+    import statistics
+
+    bad = [r["iteration"] for r in recs
+           if not (0 < r["tile_max"] <= r["rendered"])]
+    flat = [r for r in recs if r["flat"]]
+    if bad or bool(flat) != bool(launches["flat_forward"]):
+        raise AssertionError(
+            f"{what}: occupancy counters wrong at iterations {bad[:10]}; "
+            f"{len(flat)} records flat, flat_forward launches "
+            f"{launches['flat_forward']}")
+    summary = (f"occupancy: instances binned a step median "
+               f"{statistics.median(r['rendered'] for r in recs)}, max "
+               f"{max(r['rendered'] for r in recs)}; deepest tile max "
+               f"{max(r['tile_max'] for r in recs)}; {len(flat)} of "
+               f"{len(recs)} steps flat")
+    return summary, flat
+
+
 def trainer_overhead(tr, n=20):
     """What the Trainer adds to its steps, measured past the run's end
     (iterations after the last, no event among them): ``n`` bare
@@ -2542,6 +2568,7 @@ def phase_trainer(device, width=320, height=240, n_ftorf=16, iters=260,
     n_leaves = check_resume(tr, os.path.join(tr.cfg.model.model_path,
                                              f"chkpnt{iters}.npz"))
     overhead = trainer_overhead(tr)
+    occupancy, _ = check_occupancy(recs, launches, "ftorf Trainer run")
     cap = tr.model.aux.alive.shape[0]
     past = [r["iter_time"] * 1e3 for r in recs if r["iteration"] > warm]
     early = [r["iter_time"] * 1e3 for r in recs if 1 < r["iteration"] <= warm]
@@ -2559,7 +2586,8 @@ def phase_trainer(device, width=320, height=240, n_ftorf=16, iters=260,
         f"{evals[1]['eval']['test']['psnr_p']:.3f}; {n_files} artifacts; the "
         f"saved PLY ({n_ply} Gaussians) renders the Trainer's frame (max abs "
         f"err {max(ply_errs.values()):.3g}); chkpnt{iters}.npz resumes to an "
-        f"equal state ({n_leaves} leaves); kernel launches in the run {launches}")
+        f"equal state ({n_leaves} leaves); kernel launches in the run "
+        f"{launches}; {occupancy}")
     log("trainer", f"timing on {card_line() if device.type == 'cuda' else 'cpu'}: "
         f"ms/iteration (host median of iter_time) {statistics.median(past):.3f} "
         f"past warm-up (iterations {warm + 1}-{iters}), "
@@ -2650,13 +2678,20 @@ def phase_trainer(device, width=320, height=240, n_ftorf=16, iters=260,
                                       and launches["flat_backward"]):
         raise AssertionError(f"flat fallback did not engage: flat_stream "
                              f"{tr.flat_stream}, launches {launches}")
+    occupancy, flat = check_occupancy(recs, launches, "flat fallback run")
+    if device.type == "cuda" and (len(flat) != len(recs)
+                                  or max(r["tile_max"] for r in recs) <= 256):
+        raise AssertionError(f"flat fallback run: {len(flat)} of {len(recs)} "
+                             f"steps flat, deepest tile "
+                             f"{max(r['tile_max'] for r in recs)}, not past "
+                             f"the ceiling 256")
     if device.type == "cuda":
         check_preprocess_launches(launches, "flat fallback Trainer run")
     log("trainer", f"flat fallback: max_per_tile_limit 256, flat_stream "
         f"{tr.flat_stream} (auto {tr._flat_auto}) from iteration 1, 12 "
         f"iterations, loss {recs[0]['loss']:.5g} -> {recs[-1]['loss']:.5g}, "
         f"tile_overflow {max(r['tile_overflow'] for r in recs)}; kernel "
-        f"launches in the run {launches}")
+        f"launches in the run {launches}; {occupancy}")
     del tr
 
     # Health: the verify recipe; mae_d_tof must fall.

@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from contextlib import nullcontext
 
 import torch
 
@@ -46,6 +47,7 @@ from gftorf_tpu_torch.render.kernels.dense import (
 )
 from gftorf_tpu_torch.render.settings import RasterConfig
 from gftorf_tpu_torch.utils import debug_nans
+from gftorf_tpu_torch.utils.trace import span
 
 # Tile segments in the stream start at FLAT_ALIGN multiples
 # (flat_stream.py:73-75 with its chunk variables unset).
@@ -317,14 +319,18 @@ class FlatComposite(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_out, _g_contrib):
         feat_fl, bg_tiles, tile_start, tile_count, origins, out = ctx.saved_tensors
-        g = dense.stopped_cotangent(g_out)
-        dfeat = dbg = None
-        if ctx.needs_input_grad[0]:
-            dfeat = composite_backward_flat(feat_fl, bg_tiles, out, g,
-                                            tile_start, tile_count, origins,
-                                            ctx.config, ctx.has_flow)
-        if ctx.needs_input_grad[1]:
-            dbg = dense.bg_grad(out, g, bg_tiles)
+        # The span names the kernel's share of the backward pass, which runs
+        # on autograd's thread (the plain version's stays under none).
+        with (span("flat.backward") if feat_fl.is_cuda else nullcontext()):
+            g = dense.stopped_cotangent(g_out)
+            dfeat = dbg = None
+            if ctx.needs_input_grad[0]:
+                dfeat = composite_backward_flat(feat_fl, bg_tiles, out, g,
+                                                tile_start, tile_count,
+                                                origins, ctx.config,
+                                                ctx.has_flow)
+            if ctx.needs_input_grad[1]:
+                dbg = dense.bg_grad(out, g, bg_tiles)
         return dfeat, dbg, None, None, None, None, None
 
 

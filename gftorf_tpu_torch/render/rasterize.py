@@ -23,6 +23,7 @@ gives the same bits on every run.
 
 from __future__ import annotations
 
+from contextlib import nullcontext
 from typing import NamedTuple, Optional
 
 import torch
@@ -80,6 +81,12 @@ class _GatherRows(torch.autograd.Function):
 gather_rows = _GatherRows.apply
 
 
+def _flat_span(config: RasterConfig):
+    """The span ``composite.flat`` inside ``render.binning`` and
+    ``render.composite`` when the render takes the flat stream."""
+    return span("composite.flat") if config.flat_stream else nullcontext()
+
+
 class CompositeInputs(NamedTuple):
     """What rasterize hands the compositor, with the stages that made it."""
 
@@ -108,7 +115,7 @@ def composite_inputs(
             phase_offset, dc_offset, means2d_ndc, camera, config,
             active_sh_degree, colors_precomp, phasors_precomp, cov3d_precomp,
         )
-    with span("render.binning"):
+    with span("render.binning"), _flat_span(config):
         T = config.num_tiles
         binner = bin_gaussians_flat if config.flat_stream else bin_gaussians
         binning = binner(pre.rect.detach(), pre.depth_view.detach(),
@@ -158,7 +165,7 @@ def rasterize(
             colors_precomp, phasors_precomp, cov3d_precomp, flow_precomp)
     has_flow = flow_precomp is not None
     ci = composite_inputs(*args)
-    with span("render.composite"):
+    with span("render.composite"), _flat_span(config):
         binning = ci.binning
         if config.flat_stream:
             out = composite_packed_flat(

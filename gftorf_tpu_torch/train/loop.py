@@ -416,7 +416,7 @@ class Trainer:
                 f"({metrics['compact_overflow']}, bucket at dispatch: "
                 f"{rec['static'].render_bucket}): bucket tracking bug")
         if self._overflowed(metrics):
-            metrics = self._grow_and_replay(rec, metrics)
+            rec, metrics = self._grow_and_replay(rec, metrics)
         else:
             # Every ceiling already reached: the loud warnings fire here.
             if metrics["tile_overflow"] > 0:
@@ -435,6 +435,12 @@ class Trainer:
             "ema_loss": self.ema_loss,
             # None until step() returns, where this is its own record.
             "iter_time": self._step_s.pop(rec["it"], None),
+            # The step's occupancy: instances binned, the deepest tile, and
+            # whether its last dispatch composited the flat stream (read by
+            # chip_smoke.py's [trainer] phase).
+            "rendered": int(metrics["num_rendered"]),
+            "tile_max": int(metrics["tile_max"]),
+            "flat": rec["static"].config_tof.flat_stream,
             "num_points": int(metrics["num_points"]),
             "visible": int(metrics["visible"]),
             "dup_overflow": bool(metrics["dup_overflow"]),
@@ -509,11 +515,12 @@ class Trainer:
                 or (metrics["dup_overflow"] > 0
                     and self.dup_factor < self.dup_factor_limit))
 
-    def _grow_and_replay(self, rec: dict, metrics: dict) -> dict:
+    def _grow_and_replay(self, rec: dict, metrics: dict):
         """Grow whichever capacity overflowed (to 1.35x the measured need)
         and replay from the pre-step state with the same (it, idx, seed)
         sequence, so the corrected run equals a run that started with the
-        larger capacity."""
+        larger capacity. Returns the step's last dispatch and its
+        metrics."""
         replay = [rec] + self._pending
         self._pending = []
         while True:
@@ -538,7 +545,7 @@ class Trainer:
             self._warn_tile_limit(rec["it"], metrics["tile_overflow"])
         if metrics["dup_overflow"] > 0:
             self._warn_dup_limit(rec["it"])
-        return metrics
+        return rec, metrics
 
     def grow_capacities(self, metrics: dict) -> list:
         """Grow whichever capacity overflowed in ``metrics`` (a step's or a

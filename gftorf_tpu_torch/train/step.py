@@ -205,7 +205,9 @@ class StepStatic:
     the fields and meanings of the JAX ``StepStatic`` (step.py:285-373).
     The loss switches default to the evaluation path's values."""
 
-    scene_type: str  # 'torf' | 'ftorf' | 'color'
+    # The reader's scene type: 'torf' | 'ftorf' take the ToF loss; every
+    # other ('colmap', 'blender') is a colour-only step.
+    scene_type: str
     config_color: RasterConfig
     config_tof: RasterConfig
     deform: DeformConfig
@@ -821,7 +823,7 @@ def train_step(static: StepStatic, model: GaussianModelState, deform,
             it is read from the device.
 
     Returns (new_model, new_deform, new_deform_adam, metrics) where
-    metrics is a float32 vector in ``METRIC_NAMES`` order, the same on
+    metrics is a float64 vector in ``METRIC_NAMES`` order, the same on
     every rank of a mesh. The inputs are left unchanged.
     """
     mesh = None
@@ -984,8 +986,10 @@ def _update(static: StepStatic, model: GaussianModelState, deform, deform_adam,
     metrics["num_points"] = aux.alive.sum()
     metrics["tile_max"] = sa.tile_max
     metrics["rendered_max"] = rendered_max
+    # float64, so that the counts (int32 on the device) read back exact
+    # past 2**24; every float32 metric converts without rounding.
     packed = torch.stack([
-        torch.as_tensor(metrics.get(k, 0.0), device=dev).detach().to(torch.float32)
+        torch.as_tensor(metrics.get(k, 0.0), device=dev).detach().to(torch.float64)
         for k in METRIC_NAMES
     ])
     new_model = GaussianModelState(new_params, new_aux, new_adam)

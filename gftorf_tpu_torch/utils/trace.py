@@ -12,7 +12,11 @@ emitted once per layer call, never inside a loop over Gaussians, tiles
 or parameter leaves. ``preprocess.backward`` opens in the preprocess
 kernels' autograd backward (``render/kernels/preprocess.py``), on
 autograd's own thread, and only on a CUDA tensor: the plain version's
-backward is autograd's ops, under no span.
+backward is autograd's ops, under no span. ``flat.backward`` opens in the
+same way in the flat compositor's backward (``render/kernels/flat.py``),
+on a CUDA tensor. ``composite.flat`` opens inside ``render.binning`` and
+``render.composite`` (``render/rasterize.py``) when a render takes the
+flat stream: the flat binning, the stream's gather and its compositing.
 """
 
 from __future__ import annotations
@@ -37,6 +41,8 @@ SPANS = (
     ("preprocess.backward", "preprocess, binning"),
     ("render.binning", "preprocess, binning"),
     ("render.composite", "kernels"),
+    ("composite.flat", "kernels"),
+    ("flat.backward", "kernels"),
     ("loss.frame", "losses, update"),
     ("serve.frame", "entry"),
     ("serve.to_host", "entry"),

@@ -87,7 +87,12 @@ def test_config_and_log_match_train_py(runs):
             return [json.loads(line) for line in f]
 
     tl, jl = log(runs["t"]), log(runs["j"])
-    assert [sorted(r) for r in tl] == [sorted(r) for r in jl]
+    # The port's step records carry train.py's keys and the step's
+    # occupancy; its evaluation records, train.py's keys alone.
+    occupancy = {"rendered", "tile_max", "flat"}
+    assert [sorted(r) for r in tl] == [
+        sorted(set(r) | (occupancy if "iter_time" in r else set()))
+        for r in jl]
     evals = [r["eval"] for r in tl if "eval" in r]
     assert len(evals) == 2
     for e in evals:
