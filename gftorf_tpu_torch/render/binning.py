@@ -4,12 +4,15 @@
 
 Port of ``gftorf_tpu/render/binning.py`` (``bin_gaussians`` and
 ``bin_gaussians_flat``). Its integer outputs equal the JAX package's
-exactly: both sorts are stable, the scatter-max + cummax segment
-propagation is the same, and the JAX scatters' ``mode="drop"``
+exactly: both sorts are stable, and the JAX scatters' ``mode="drop"``
 (out-of-range indices are skipped) is done by scattering into a buffer
-padded by one row that is sliced off. Indices are int64 inside; outputs
-are int32, as in JAX. Everything here is integer bookkeeping: no
-gradients flow through it.
+padded by one row that is sliced off. Where JAX propagates a segment's
+value along the slots by scatter-max + cummax (each slot's Gaussian, each
+slot's tile segment start, each flat block's tile), the port finds the
+same value by a binary search over an array that binning already holds
+sorted: no atomics meet on one slot and no scan walks the slot array.
+Indices are int64 inside; outputs are int32, as in JAX. Everything here
+is integer bookkeeping: no gradients flow through it.
 """
 
 from __future__ import annotations
@@ -60,6 +63,35 @@ class _Sorted(NamedTuple):
     dup_overflow: torch.Tensor  # () bool
 
 
+def _slot_owner(cum: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
+    """The Gaussian whose span holds each slot, from the inclusive prefix
+    sum ``cum`` of the span lengths: the number of spans that end at or
+    before the slot. JAX's scatter-max of each index at its span start,
+    then cummax, gives the same: a Gaussian with no tiles ends where it
+    starts and owns no slot (the next one with tiles, a larger index,
+    wins that start), and slots at or past ``cum[-1]`` take the last
+    Gaussian, ``P - 1``."""
+    return torch.searchsorted(cum, slots, side="right").clamp(max=cum.shape[0] - 1)
+
+
+def _segment_starts(tile_s: torch.Tensor, T: int):
+    """First slot of each tile's run in the sorted ``tile_s``: (T,) for the
+    tiles, and (K,) for the run each slot lies in, the sentinel tile ``T``
+    past ``num_rendered`` included (JAX: cummax over the runs' heads)."""
+    tids = torch.arange(T + 1, dtype=tile_s.dtype, device=tile_s.device)
+    start = torch.searchsorted(tile_s, tids, side="left")
+    return start[:T], start[tile_s]
+
+
+def _block_tile(base_block: torch.Tensor, n_blocks: int) -> torch.Tensor:
+    """Tile of each of ``n_blocks`` flat blocks: the last tile whose first
+    block is at or before it (``base_block`` rises strictly from 0, a block
+    or more a tile), so tail blocks take the last tile, as JAX's scatter-max
+    of tile indices at their base blocks, then cummax, gives."""
+    blocks = torch.arange(n_blocks, dtype=base_block.dtype, device=base_block.device)
+    return torch.searchsorted(base_block, blocks, side="right") - 1
+
+
 def _sort_instances(rect, depth_view, valid, config: RasterConfig,
                     capacity: int, T: int) -> _Sorted:
     """Expand each valid Gaussian over its tile rect into ``capacity``
@@ -72,7 +104,6 @@ def _sort_instances(rect, depth_view, valid, config: RasterConfig,
             "so each grid dimension must stay below 256"
         )
     dev = rect.device
-    P = rect.shape[0]
     i64 = torch.int64
 
     # Depth pre-sort (stable): instances expanded in this order are
@@ -94,14 +125,7 @@ def _sort_instances(rect, depth_view, valid, config: RasterConfig,
     slots = torch.arange(capacity, dtype=i64, device=dev)
     slot_valid = slots < num_rendered
 
-    # Owner propagation: scatter-max each gaussian's index at its span
-    # start, then cummax. Starts at or past the capacity are dropped (the
-    # padding row).
-    gids = torch.arange(P, dtype=i64, device=dev)
-    seg = torch.zeros(capacity + 1, dtype=i64, device=dev)
-    seg.scatter_reduce_(0, offsets.clamp(max=capacity), gids, reduce="amax")
-    g = torch.cummax(seg[:capacity], 0).values
-
+    g = _slot_owner(cum, slots)
     within = slots - offsets[g]
 
     packed = rect[:, 0] | (rect[:, 1] << 8) | (nx.clamp(min=1) << 16)
@@ -119,13 +143,9 @@ def _sort_instances(rect, depth_view, valid, config: RasterConfig,
     tile_s, perm = torch.sort(tile, stable=True)
     g_s = order[g[perm]]
 
+    tile_start, seg_start = _segment_starts(tile_s, T)
     tids = torch.arange(T, dtype=i64, device=dev)
-    tile_start = torch.searchsorted(tile_s, tids, side="left")
     tile_end = torch.searchsorted(tile_s, tids, side="right")
-
-    is_head = torch.ones_like(tile_s, dtype=torch.bool)
-    is_head[1:] = tile_s[1:] != tile_s[:-1]
-    seg_start = torch.cummax(torch.where(is_head, slots, torch.zeros_like(slots)), 0).values
     return _Sorted(tile_s=tile_s, g_s=g_s, pos=slots - seg_start,
                    tile_start=tile_start, tile_end=tile_end,
                    num_rendered=num_rendered,
@@ -196,12 +216,7 @@ def bin_gaussians_flat(
     gauss_flat = torch.full((K_pad + 1,), -1, dtype=torch.int32, device=dev)
     gauss_flat[dest] = s.g_s.to(torch.int32)
 
-    # Block -> tile map: each tile's index at its base block, then cummax;
-    # tail blocks inherit the last tile (their rows are padding).
-    tids = torch.arange(T, dtype=torch.int64, device=dev)
-    ct = torch.zeros(n_blocks + 1, dtype=torch.int64, device=dev)
-    ct.scatter_reduce_(0, base_block.clamp(max=n_blocks), tids, reduce="amax")
-    chunk_tile = torch.cummax(ct[:n_blocks], 0).values
+    chunk_tile = _block_tile(base_block, n_blocks)
 
     return FlatBinning(
         gauss_flat=gauss_flat[:K_pad],
