@@ -179,8 +179,7 @@ def save_compact_state(trainer, path, model=None):
             "active_sh_degree": trainer.active_sh_degree,
             "lambda_color": trainer.lambda_color,
             "opacity_reset_interval": trainer.opacity_reset_interval,
-            "tile_cap": trainer.tile_cap, "dup_factor": trainer.dup_factor,
-            "flat_stream": trainer.flat_stream, "flat_auto": trainer._flat_auto,
+            **trainer.occupancy.meta(),
             "capacity": cap, "live": int(alive.sum())}
     arrays["__meta__"] = np.frombuffer(json.dumps(meta).encode(), np.uint8)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)

@@ -2389,7 +2389,7 @@ def check_ply_render(tr, it):
     # evaluation truncates silently at the training cap).
     static = tr._static_for(tr.iteration)
     static = dataclasses.replace(static, **{
-        k: dataclasses.replace(getattr(static, k), max_per_tile=tr.tile_cap_limit)
+        k: dataclasses.replace(getattr(static, k), max_per_tile=tr.occupancy.tile_cap_limit)
         for k in ("config_color", "config_tof")})
     frame = take_frame(tr.scene.test_frames, 5)
     ref = eval_frame(static, tr.model.params,
@@ -2425,10 +2425,11 @@ def check_resume(tr, path):
     to_np = lambda x: x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)  # noqa: E731
     diff = [i for i, (x, y) in enumerate(zip(a, b))
             if not np.array_equal(to_np(x), to_np(y))]
-    keys = ("iteration", "tile_cap", "dup_factor", "flat_stream",
-            "active_sh_degree", "opacity_reset_interval", "render_bucket",
-            "deform_bucket")
+    keys = ("iteration", "active_sh_degree", "opacity_reset_interval",
+            "render_bucket", "deform_bucket")
     meta = [k for k in keys if getattr(tr2, k) != getattr(tr, k)]
+    meta += [k for k in ("tile_cap", "dup_factor", "flat_stream")
+             if getattr(tr2.occupancy, k) != getattr(tr.occupancy, k)]
     if len(a) != len(b) or diff or meta:
         raise AssertionError(f"resumed state differs: leaves {diff}, meta {meta}")
     return len(a)
@@ -2673,11 +2674,12 @@ def phase_trainer(device, width=320, height=240, n_ftorf=16, iters=260,
         "--iterations", 12, "--max_per_tile", 256, "--max_per_tile_limit", 256,
         "--test_iterations", 0)
     launches = read_launches()
-    if device.type == "cuda" and not (tr.flat_stream and tr._flat_auto
+    occ = tr.occupancy
+    if device.type == "cuda" and not (occ.flat_stream and occ.flat_auto
                                       and launches["flat_forward"]
                                       and launches["flat_backward"]):
         raise AssertionError(f"flat fallback did not engage: flat_stream "
-                             f"{tr.flat_stream}, launches {launches}")
+                             f"{occ.flat_stream}, launches {launches}")
     occupancy, flat = check_occupancy(recs, launches, "flat fallback run")
     if device.type == "cuda" and (len(flat) != len(recs)
                                   or max(r["tile_max"] for r in recs) <= 256):
@@ -2688,7 +2690,7 @@ def phase_trainer(device, width=320, height=240, n_ftorf=16, iters=260,
     if device.type == "cuda":
         check_preprocess_launches(launches, "flat fallback Trainer run")
     log("trainer", f"flat fallback: max_per_tile_limit 256, flat_stream "
-        f"{tr.flat_stream} (auto {tr._flat_auto}) from iteration 1, 12 "
+        f"{occ.flat_stream} (auto {occ.flat_auto}) from iteration 1, 12 "
         f"iterations, loss {recs[0]['loss']:.5g} -> {recs[-1]['loss']:.5g}, "
         f"tile_overflow {max(r['tile_overflow'] for r in recs)}; kernel "
         f"launches in the run {launches}; {occupancy}")
@@ -3038,7 +3040,7 @@ def phase_events(device, data, model, it0, n_ftorf=16, budget_s=EVENTS_BUDGET_S,
     if not (tries_card and tries_cpu) or len(tries_card) != len(tries_cpu):
         raise AssertionError(f"[events] densify tries: card {len(tries_card)}, "
                              f"cpu {len(tries_cpu)}")
-    rc = tr_cpu._raster_config(True)
+    rc = tr_cpu._static_for(tr_cpu.iteration).config_tof
     log("events", f"from the [trainer] ftorf checkpoint at {it0} "
         f"({int(tries_cpu[0]['alive'].sum())} Gaussians at the event, "
         f"D={tr_cpu.deform_cfg.depth} W={tr_cpu.deform_cfg.width}, "
@@ -3184,8 +3186,9 @@ def cutoff_evidence(model, it, record, device):
     outs, d_xyz = [], []
     for dev in (device, torch.device("cpu")):
         tr, _, _ = render_sets.load_trained(model, it, dev)
-        tr.tile_cap, tr.dup_factor = record["max_per_tile"], record["dup_factor"]
-        tr.flat_stream = record["flat_stream"]
+        occ = tr.occupancy
+        occ.tile_cap, occ.dup_factor = record["max_per_tile"], record["dup_factor"]
+        occ.flat_stream = record["flat_stream"]
         deform = functools.partial(apply_deform, tr.deform, tr.deform_cfg)
         _, _, out = eval_frame(tr._static_for(it), tr.model.params, deform,
                                tr.model.aux.alive,
@@ -3286,8 +3289,9 @@ def phase_render(device, iters=260, torf_iters=30):
         tr.deform, tr.deform_cfg, xyz, t, x_emb)
     for i in (0, 1):
         rec = records[i]
-        tr.tile_cap, tr.dup_factor = rec["max_per_tile"], rec["dup_factor"]
-        tr.flat_stream = rec["flat_stream"]
+        occ = tr.occupancy
+        occ.tile_cap, occ.dup_factor = rec["max_per_tile"], rec["dup_factor"]
+        occ.flat_stream = rec["flat_stream"]
         with capturing({"forward": (dense, "composite_forward")}) as cap:
             _, _, out = eval_frame(tr._static_for(iters), tr.model.params,
                                    deform, tr.model.aux.alive,

@@ -137,10 +137,11 @@ def main(argv=None) -> dict:
         os.makedirs(args.profile, exist_ok=True)
         prof.export_chrome_trace(os.path.join(args.profile, "trace.json"))
 
+    occ = trainer.occupancy
     print(f"timed window: iterations {trainer.iteration + 1}-"
           f"{trainer.iteration + args.iters - args.warm} (max_per_tile "
-          f"{trainer.tile_cap}, dup_factor {trainer.dup_factor}, flat_stream "
-          f"{trainer.flat_stream})", flush=True)
+          f"{occ.tile_cap}, dup_factor {occ.dup_factor}, flat_stream "
+          f"{occ.flat_stream})", flush=True)
     t0 = time.perf_counter()
     outs = []
     for _ in range(args.iters - args.warm):

@@ -13,11 +13,11 @@ outputs:
  2. **Tile-row sharding.** The tile grid is split into bands of
     ``ceil(grid_h / n)`` rows. Each rank clips every rect to its band,
     bins into a local (rows * grid_w)-tile grid with 1/n of the
-    duplicate capacity (at least 1024), and composites its band with the
-    same kernels as one device (dense ``DenseComposite`` or, with
-    ``config.flat_stream``, ``FlatComposite``), given the band's
-    background slice and the tiles' global pixel origins, under the
-    global image size (the inside-the-image test).
+    duplicate capacity (at least 1024), and composites its band through
+    the single-device stages (``render/rasterize.py``: ``bin_and_gather``,
+    ``composite``, ``pixel_counts``), given the band's background slice
+    and the tiles' global pixel origins, under the global image size (the
+    inside-the-image test).
  3. **Reductions.** The (T, PIX, 32) output blocks are all-gathered back
     to the full image; the per-Gaussian touched-pixel counts are summed
     over the ranks, the radii all-gathered and cut to P; ``num_rendered``
@@ -45,17 +45,14 @@ from gftorf_tpu_torch.parallel.collectives import (
     all_gather_stack,
     psum,
 )
-from gftorf_tpu_torch.render.binning import bin_gaussians, bin_gaussians_flat
 from gftorf_tpu_torch.render.composite import tiles_to_image
 from gftorf_tpu_torch.render.kernels.dense import (
-    DenseComposite,
     _bg_to_tiles,
     pack_gaussian_features,
     unpack_outputs,
 )
-from gftorf_tpu_torch.render.kernels.flat import FlatComposite
 from gftorf_tpu_torch.render.preprocess import preprocess
-from gftorf_tpu_torch.render.rasterize import gather_rows
+from gftorf_tpu_torch.render.rasterize import bin_and_gather, composite, pixel_counts
 from gftorf_tpu_torch.render.settings import CameraSpec, RasterConfig, RenderOutputs
 
 
@@ -125,31 +122,17 @@ def rasterize_sharded(
     local_rect = torch.stack([rect[:, 0], (rect[:, 1] - row0).clamp(0, rows),
                               rect[:, 2], (rect[:, 3] - row0).clamp(0, rows)], -1)
     local_cfg = dataclasses.replace(config, height=rows * config.tile_h)
-    local_T = local_cfg.num_tiles
     capacity = max(1024, config.capacity_for(P) // n)
     th = config.tile_h
     bg_p = torch.nn.functional.pad(bg_map, (0, 0, 0, rows * n * th - config.height))
-    bg_tiles = _bg_to_tiles(bg_p[:, row0 * th:(row0 + rows) * th], local_T,
-                            local_cfg)
+    bg_tiles = _bg_to_tiles(bg_p[:, row0 * th:(row0 + rows) * th],
+                            local_cfg.num_tiles, local_cfg)
     origins = band_origins(row0, rows, config, dev)
     has_flow = flow_precomp is not None
-
-    if config.flat_stream:
-        binning = bin_gaussians_flat(local_rect, depth, valid_all, local_cfg,
-                                     capacity)
-        ids = binning.gauss_flat
-        feat = torch.where((ids >= 0)[:, None], gather_rows(packed, ids), 0.0)
-        block, contrib = FlatComposite.apply(
-            feat, bg_tiles, binning.tile_start, binning.tile_count, origins,
-            config, has_flow)
-        tile_overflow = torch.zeros((), dtype=torch.int32, device=dev)
-    else:
-        binning = bin_gaussians(local_rect, depth, valid_all, local_cfg, capacity)
-        ids = binning.gauss_id.reshape(-1)
-        feat = gather_rows(packed, ids).reshape(*binning.gauss_id.shape, 24)
-        block, contrib = DenseComposite.apply(
-            feat, bg_tiles, binning.tile_count, origins, config, has_flow)
-        tile_overflow = binning.tile_overflow
+    binning, feat, ids = bin_and_gather(packed, local_rect, depth, valid_all,
+                                        local_cfg, capacity)
+    block, contrib, tile_overflow = composite(feat, binning, bg_tiles, origins,
+                                              config, has_flow)
 
     # ---- 3. reductions (sharded.py:222-252)
     out = unpack_outputs(all_gather_rows(block, group), None)
@@ -158,11 +141,8 @@ def rasterize_sharded(
     def image(tile_img):
         return tiles_to_image(tile_img, image_cfg)[:, :config.height]
 
-    # Touched-pixel counts: integer-valued float32 sums below 2**24, exact
-    # in any order; ids index the padded rows, cut to P after the sum.
-    pixels = torch.zeros(per * n, dtype=torch.float32, device=dev)
-    pixels.index_add_(0, ids.clamp(min=0).long(), contrib.reshape(-1))
-    pixels = psum(pixels, group)[:P]
+    # ids index the padded rows: the counts are cut to P after the sum.
+    pixels = psum(pixel_counts(ids, contrib, per * n), group)[:P]
     counts = all_gather_stack(torch.stack([
         binning.num_rendered.to(torch.int32),
         binning.dup_overflow.to(torch.int32), tile_overflow.to(torch.int32),

@@ -25,7 +25,7 @@ package's default, 256.
 tensors' device like their dense counterparts (``dense.py``): a CUDA
 tensor goes through the kernel (or the call raises), a CPU tensor through
 the plain version. ``FlatComposite`` is the ``torch.autograd.Function`` in
-place of ``_make_flat_vjp``; ``composite_packed_flat`` is
+place of ``_make_flat_vjp``; with ``dense.unpack_outputs`` it is
 ``flat_stream.py::composite_packed_flat``.
 """
 
@@ -42,7 +42,6 @@ from gftorf_tpu_torch.render.kernels.dense import (
     BG_COLS,
     FEAT_COLS,
     OUT_COLS,
-    TileOutputs,
     check_tensors,
 )
 from gftorf_tpu_torch.render.settings import RasterConfig
@@ -333,11 +332,3 @@ class FlatComposite(torch.autograd.Function):
                 dbg = dense.bg_grad(out, g, bg_tiles)
         return dfeat, dbg, None, None, None, None, None
 
-
-def composite_packed_flat(feat_fl, tile_start, tile_count, bg_tiles, origins,
-                          config: RasterConfig, has_flow: bool = True) -> TileOutputs:
-    """Composite the aligned packed stream (flat_stream.py:549-574);
-    returns TileOutputs with ``contrib_pixels`` in stream layout (K_pad,)."""
-    out, contrib = FlatComposite.apply(feat_fl, bg_tiles, tile_start,
-                                       tile_count, origins, config, has_flow)
-    return dense.unpack_outputs(out, contrib)

@@ -17,7 +17,7 @@ Where the port differs from the JAX package:
 - A frame whose deepest tile overflows the loaded Trainer's
   ``max_per_tile`` (``cfg.tpu.max_per_tile``, not the cap the training
   run grew to) is rendered again at a cap that holds it, by the
-  Trainer's own rule (``Trainer.grow_capacities``: 1.35x the deepest tile,
+  Trainer's own rule (``train/occupancy.py``: 1.35x the deepest tile,
   then the flat stream on CUDA past ``max_per_tile_limit``), and later
   frames keep the grown cap. The JAX package renders such a frame with
   the tile's excess instances dropped (ROADMAP, Queue 3).
@@ -126,6 +126,7 @@ def render_frame(trainer, static, frame):
     transfer. On an overflow the Trainer's capacities grow and the frame
     is rendered again; the returned static carries the grown ones.
     """
+    occupancy = trainer.occupancy
     with span("serve.frame"):
         deform = functools.partial(apply_deform, trainer.deform,
                                    trainer.deform_cfg)
@@ -158,16 +159,13 @@ def render_frame(trainer, static, frame):
                            "rendered_max": int(c[:, 3].max())}
             if first is None:
                 first = metrics
-            if not trainer._overflowed(metrics):
+            if not occupancy.overflowed(metrics):
                 break
-            grew = trainer.grow_capacities(metrics)
+            grew = occupancy.grow(metrics, trainer.render_rows)
             print(f"[render] frame {int(frame.frame_id)}: capacity overflow -> "
                   f"{', '.join(grew)}, rendering it again", flush=True)
-            static = trainer.with_capacities(static)
-        if metrics["tile_overflow"] > 0:
-            trainer._warn_tile_limit(trainer.iteration, metrics["tile_overflow"])
-        if metrics["dup_overflow"] > 0:
-            trainer._warn_dup_limit(trainer.iteration)
+            static = occupancy.apply(static)
+        occupancy.warn_truncation(trainer.iteration, metrics)
         cfg = static.config_tof
         record = dict(first, tile_overflow_final=metrics["tile_overflow"],
                       renders=renders, max_per_tile=cfg.max_per_tile,
@@ -221,7 +219,7 @@ def render_split(trainer, frames, n_frames, out_dir, cfg, max_frames=0,
     os.makedirs(out_dir, exist_ok=True)
     if static is None:
         static = trainer._static_for(max(trainer.iteration, 1))
-    static = trainer.with_capacities(static)
+    static = trainer.occupancy.apply(static)
     chans = ["color", "real", "imag", "amp", "depth", "depth_norm",
              "depth_tof", "dd"]
     if cfg.opt.use_quad:

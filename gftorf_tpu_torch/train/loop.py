@@ -3,8 +3,7 @@
 Port of ``gftorf_tpu/train/loop.py::Trainer``. The inner step is
 ``train_step``; this loop handles everything with host-visible control
 flow: camera sampling, the densify / prune / opacity-reset cadence, SH
-warm-up, capacity growth and shrinking, the flat-stream fallback, and
-checkpoints.
+warm-up, grow-and-replay by ``train/occupancy.py``'s policy, and checkpoints.
 
 Where the port differs from a line-by-line copy:
 
@@ -28,12 +27,9 @@ Where the port differs from a line-by-line copy:
   start-up on CUDA: the card's occupancy query of each dense backward
   instance the step launches, which raises where a launch would be
   refused.
-- The flat-stream fallback (a scene's deepest tile outgrowing
-  ``max_per_tile_limit``) is available on CUDA, where the JAX package
-  needs a TPU; on the CPU the port truncates with a warning as JAX does on
-  the CPU.
-- The A/B toggles ``GFTORF_COMPACT_LAYOUT``, ``GFTORF_STATIC_FLOW`` and
-  ``GFTORF_SSIM_IMPL`` are read once, here at init.
+- The A/B toggles ``GFTORF_COMPACT_LAYOUT`` and ``GFTORF_SSIM_IMPL`` are
+  read once, here at init. One device gates the flow channels on the
+  camera's frame statically; a mesh gates them at run time.
 - The mesh. The JAX Trainer is one controller over every device of its
   (data, shard) mesh. Here each rank of a ``torch.distributed`` process
   group runs this same host loop (``TpuParams.mesh_data`` x
@@ -76,7 +72,7 @@ from gftorf_tpu_torch.models.gaussians import (
     sort_layout,
 )
 from gftorf_tpu_torch.parallel.mesh import cached_mesh
-from gftorf_tpu_torch.render.settings import RasterConfig
+from gftorf_tpu_torch.train.occupancy import Occupancy
 from gftorf_tpu_torch.train.step import (
     METRIC_NAMES,
     SchedStatic,
@@ -160,7 +156,6 @@ class Trainer:
 
         # The A/B toggles (ROADMAP, Port conventions), read once.
         self.compact_layout = os.environ.get("GFTORF_COMPACT_LAYOUT", "1") != "0"
-        self.static_flow = os.environ.get("GFTORF_STATIC_FLOW", "1") != "0"
         self.ssim_impl = os.environ.get("GFTORF_SSIM_IMPL", "banded")
 
         # Rows sorted [dynamic+alive | static+alive | dead], re-established
@@ -187,31 +182,12 @@ class Trainer:
         self._pending: list = []
         # Host seconds of each step() call whose record is still pending.
         self._step_s: dict = {}
-        self.tile_cap = cfg.tpu.max_per_tile
-        self.tile_cap_limit = max(self.tile_cap, cfg.tpu.max_per_tile_limit)
-        # Active compositor layout: flat_stream may flip on (the fallback)
-        # and back; _flat_auto marks an automatic switch.
-        self.flat_stream = bool(cfg.tpu.flat_stream)
-        self._flat_auto = False
-        self._flat_fallback_ok = (self.device.type == "cuda"
-                                  and cfg.tpu.tile_overflow_fallback == "flat")
+        self.occupancy = Occupancy(cfg.tpu, self.device)
         self.dd_possible = (opt.lambda_dd != 0.0
                             and opt.dd_loss_iter_end > opt.dd_loss_iter_start + 1)
         self.backward_fits: dict = {}
         if self.device.type == "cuda" and cfg.tpu.check_vmem_cap:
             self.check_backward_fits()
-        self._tile_limit_warned = False
-        self.dup_factor = cfg.tpu.dup_factor
-        self.dup_factor_limit = max(self.dup_factor, cfg.tpu.dup_factor_limit)
-        self._dup_limit_warned = False
-        # Adaptive shrinking (see TpuParams.shrink_window).
-        self.shrink_window = cfg.tpu.shrink_window
-        self.tile_cap_floor = cfg.tpu.max_per_tile_floor
-        self.dup_factor_floor = cfg.tpu.dup_factor_floor
-        self._occ_steps = 0
-        self._occ_tile_max = 0
-        self._occ_rendered_max = 0
-
 
         if self.scene.scene_type == "torf":
             self.render_regions = ("dynamic",)
@@ -247,8 +223,9 @@ class Trainer:
         """A SHA-1 digest of this rank's state (the checkpoint tree and the
         host capacities); under a mesh every rank must call it, and it
         raises unless every rank holds the same digest."""
-        h = hashlib.sha1(repr((self.iteration, self.tile_cap, self.dup_factor,
-                               self.flat_stream)).encode())
+        occ = self.occupancy
+        h = hashlib.sha1(repr((self.iteration, occ.tile_cap, occ.dup_factor,
+                               occ.flat_stream)).encode())
         for leaf in tree_leaves(self._checkpoint_tree()):
             leaf = leaf.detach().cpu().numpy() if torch.is_tensor(leaf) else leaf
             h.update(np.ascontiguousarray(leaf).tobytes())
@@ -290,11 +267,10 @@ class Trainer:
                               if self.cfg.tpu.compact_render else 0)
 
     # ------------------------------------------------------------------
-    def _raster_config(self, tof: bool) -> RasterConfig:
-        cfg = self.scene.raster_config(tof, self.cfg.model.sh_degree)
-        return dataclasses.replace(cfg, max_per_tile=self.tile_cap,
-                                   dup_factor=self.dup_factor,
-                                   flat_stream=self.flat_stream)
+    @property
+    def render_rows(self) -> int:
+        """The rows a render bins: the render bucket, or the capacity."""
+        return self.render_bucket or int(self.model.aux.alive.shape[0])
 
     def _static_for(self, iteration: int,
                     flow_frame: Optional[bool] = None) -> StepStatic:
@@ -306,16 +282,16 @@ class Trainer:
             regions = ("static", "dynamic")
         flow_on = (scene.scene_type == "ftorf" and opt.lambda_flow != 0.0
                    and dynamic_on)
-        return StepStatic(
+        return self.occupancy.apply(StepStatic(
             scene_type=scene.scene_type,
             # The loss reads depth_distortion from the ToF render only, and
             # never the first-sample distribution.
             config_color=dataclasses.replace(
-                self._raster_config(False), need_dd=False,
+                scene.raster_config(False, m.sh_degree), need_dd=False,
                 need_distribution=False),
             config_tof=dataclasses.replace(
-                self._raster_config(True), need_dd=self.dd_possible,
-                need_distribution=False),
+                scene.raster_config(True, m.sh_degree),
+                need_dd=self.dd_possible, need_distribution=False),
             deform=self.deform_cfg,
             active_sh_degree=self.active_sh_degree,
             total_num_views=m.total_num_views,
@@ -359,7 +335,7 @@ class Trainer:
             compact_layout=self.compact_layout,
             deform_clip=self.cfg.tpu.deform_clip,
             ssim_impl=self.ssim_impl,
-        )
+        ))
 
     def _pick_camera(self) -> int:
         m = self.cfg.model
@@ -415,15 +391,11 @@ class Trainer:
                 f"render compaction truncated rows at iter {rec['it']} "
                 f"({metrics['compact_overflow']}, bucket at dispatch: "
                 f"{rec['static'].render_bucket}): bucket tracking bug")
-        if self._overflowed(metrics):
+        if self.occupancy.overflowed(metrics):
             rec, metrics = self._grow_and_replay(rec, metrics)
-        else:
-            # Every ceiling already reached: the loud warnings fire here.
-            if metrics["tile_overflow"] > 0:
-                self._warn_tile_limit(rec["it"], metrics["tile_overflow"])
-            if metrics["dup_overflow"] > 0:
-                self._warn_dup_limit(rec["it"])
-        self._note_occupancy(metrics)
+        # What is left overflows at a ceiling: the loud warnings fire here.
+        self.occupancy.warn_truncation(rec["it"], metrics)
+        self.occupancy.note(self.iteration, metrics, self.render_rows)
 
         loss = metrics["loss"]
         self.ema_loss = 0.4 * loss + 0.6 * self.ema_loss
@@ -449,72 +421,6 @@ class Trainer:
         self.history.append(out)
         return out
 
-    def _note_occupancy(self, metrics: dict) -> None:
-        """Track buffer high-water marks and shrink capacities sitting far
-        above need (TpuParams.shrink_window), with 1.5x hysteresis. An
-        over-eager shrink corrects itself through grow-and-replay."""
-        if self.shrink_window <= 0:
-            return
-        self._occ_steps += 1
-        self._occ_tile_max = max(self._occ_tile_max, int(metrics["tile_max"]))
-        self._occ_rendered_max = max(self._occ_rendered_max,
-                                     int(metrics["rendered_max"]))
-        if self._occ_steps < self.shrink_window:
-            return
-        shrunk = []
-        tile_target = self._tile_cap_need(self._occ_tile_max)
-        # An auto-engaged flat fallback disengages once the deepest tile
-        # fits the dense ceiling with the same 1.5x hysteresis.
-        if (self.flat_stream and self._flat_auto
-                and tile_target * 3 <= self.tile_cap_limit * 2):
-            print(f"[iter {self.iteration}] occupancy tracking: deepest "
-                  f"tile {self._occ_tile_max} fits the dense ceiling "
-                  f"{self.tile_cap_limit}; flat-stream fallback off "
-                  f"(max_per_tile -> {tile_target})", flush=True)
-            self.flat_stream = False
-            self._flat_auto = False
-            self.tile_cap = tile_target
-            self._occ_steps = self._occ_tile_max = self._occ_rendered_max = 0
-            return
-        # The flat stream has no tile-depth capacity to shrink.
-        if not self.flat_stream and tile_target * 3 <= self.tile_cap * 2:
-            shrunk.append(f"max_per_tile {self.tile_cap} -> {tile_target} "
-                          f"(deepest tile {self._occ_tile_max})")
-            self.tile_cap = tile_target
-        dup_target = self._dup_factor_need(self._occ_rendered_max)
-        if dup_target * 3 <= self.dup_factor * 2:
-            shrunk.append(f"dup_factor {self.dup_factor} -> {dup_target} "
-                          f"(max rendered {self._occ_rendered_max})")
-            self.dup_factor = dup_target
-        if shrunk:
-            print(f"[iter {self.iteration}] occupancy tracking: "
-                  + "; ".join(shrunk), flush=True)
-        self._occ_steps = self._occ_tile_max = self._occ_rendered_max = 0
-
-    _CAP_MARGIN = 1.35
-
-    def _tile_cap_need(self, tile_max: int) -> int:
-        """128-aligned max_per_tile for an observed deepest tile."""
-        return max(self.tile_cap_floor,
-                   -(-int(tile_max * self._CAP_MARGIN) // 128) * 128)
-
-    def _dup_factor_need(self, rendered_max: int) -> int:
-        """dup_factor for an observed instance total (counted before the
-        clip, so it is the true need even on overflow)."""
-        p_rows = self.render_bucket or int(self.model.aux.alive.shape[0])
-        return max(self.dup_factor_floor,
-                   -(-int(rendered_max * self._CAP_MARGIN) // p_rows))
-
-    def _overflowed(self, metrics: dict) -> bool:
-        """True when a recoverable capacity was exceeded this step; a tile
-        overflow at the ceiling is recoverable while the flat-stream
-        fallback is available."""
-        tile_fixable = (self.tile_cap < self.tile_cap_limit
-                        or (not self.flat_stream and self._flat_fallback_ok))
-        return ((metrics["tile_overflow"] > 0 and tile_fixable)
-                or (metrics["dup_overflow"] > 0
-                    and self.dup_factor < self.dup_factor_limit))
-
     def _grow_and_replay(self, rec: dict, metrics: dict):
         """Grow whichever capacity overflowed (to 1.35x the measured need)
         and replay from the pre-step state with the same (it, idx, seed)
@@ -524,7 +430,7 @@ class Trainer:
         replay = [rec] + self._pending
         self._pending = []
         while True:
-            grew = self.grow_capacities(metrics)
+            grew = self.occupancy.grow(metrics, self.render_rows)
             if not grew:
                 break
             print(f"[iter {rec['it']}] capacity overflow -> "
@@ -533,83 +439,19 @@ class Trainer:
             for r in replay:
                 with span("trainer.replay"):
                     self._dispatch(r["it"], r["idx"],
-                                   self.with_capacities(r["static"]))
+                                   self.occupancy.apply(r["static"]))
             rec = self._pending.pop(0)
             replay = [rec] + self._pending
             self._pending = []
             metrics = self._metrics_of(rec)
-            if not self._overflowed(metrics):
+            if not self.occupancy.overflowed(metrics):
                 self._pending = replay[1:]
                 break
-        if metrics["tile_overflow"] > 0:
-            self._warn_tile_limit(rec["it"], metrics["tile_overflow"])
-        if metrics["dup_overflow"] > 0:
-            self._warn_dup_limit(rec["it"])
         return rec, metrics
 
-    def grow_capacities(self, metrics: dict) -> list:
-        """Grow whichever capacity overflowed in ``metrics`` (a step's or a
-        render's ``tile_overflow``, ``tile_max``, ``dup_overflow`` and
-        ``rendered_max``) to 1.35x the measured need, or take the flat
-        stream past the dense ceiling where it is available; returns what
-        grew (empty at every ceiling)."""
-        grew = []
-        if metrics["tile_overflow"] > 0:
-            if self.tile_cap < self.tile_cap_limit:
-                self.tile_cap = min(
-                    max(self._tile_cap_need(int(metrics["tile_max"])),
-                        self.tile_cap + 128),
-                    self.tile_cap_limit)
-                grew.append(f"max_per_tile={self.tile_cap} (dropped "
-                            f"{int(metrics['tile_overflow'])} instances)")
-            elif not self.flat_stream and self._flat_fallback_ok:
-                # Past the dense ceiling the exact flat stream renders
-                # the scene: tile depth is not a kernel dimension there.
-                self.flat_stream = True
-                self._flat_auto = True
-                grew.append(
-                    f"flat_stream=True (deepest tile "
-                    f"{int(metrics['tile_max'])} exceeds the dense "
-                    f"ceiling {self.tile_cap_limit}; exact stream "
-                    f"fallback)")
-        if (metrics["dup_overflow"] > 0
-                and self.dup_factor < self.dup_factor_limit):
-            self.dup_factor = min(
-                max(self._dup_factor_need(int(metrics["rendered_max"])),
-                    self.dup_factor + 1),
-                self.dup_factor_limit)
-            grew.append(f"dup_factor={self.dup_factor}")
-        return grew
-
     def with_capacities(self, static: StepStatic) -> StepStatic:
-        """``static`` with the current max_per_tile, dup_factor and
-        flat_stream on both RasterConfigs."""
-        caps = dict(max_per_tile=self.tile_cap, dup_factor=self.dup_factor,
-                    flat_stream=self.flat_stream)
-        return dataclasses.replace(
-            static, config_color=dataclasses.replace(static.config_color, **caps),
-            config_tof=dataclasses.replace(static.config_tof, **caps))
-
-    def _warn_tile_limit(self, it: int, dropped: float) -> None:
-        """One-time warning when the tile cap ceiling truncates renders."""
-        if self._tile_limit_warned:
-            return
-        self._tile_limit_warned = True
-        print(f"[iter {it}] WARNING: tile overflow ({int(dropped)} instances"
-              f" dropped) at max_per_tile_limit={self.tile_cap_limit};"
-              " renders are truncated until the scene thins out"
-              " (raise --max_per_tile_limit to keep exactness)", flush=True)
-
-    def _warn_dup_limit(self, it: int) -> None:
-        """One-time warning when the duplicate-list ceiling drops
-        instances."""
-        if self._dup_limit_warned:
-            return
-        self._dup_limit_warned = True
-        print(f"[iter {it}] WARNING: duplicate-list overflow at "
-              f"dup_factor_limit={self.dup_factor_limit}; renders drop "
-              "instances until the scene thins out (raise "
-              "--dup_factor_limit to keep exactness)", flush=True)
+        """``static`` with the current capacities (``Occupancy.apply``)."""
+        return self.occupancy.apply(static)
 
     def drain(self) -> list:
         """Resolve every pending step (before host-side events that read
@@ -649,13 +491,10 @@ class Trainer:
             # gates the flow channels on each slice's frame at run time.
             idx = [self._pick_camera() for _ in range(self.data_ax)]
             static = self._static_for(it)
-        elif self.static_flow:
+        else:
             idx = self._pick_camera()
             fid = self.scene.data.train_cameras[idx].frame_id
             static = self._static_for(it, flow_frame=fid % 4 == 0)
-        else:
-            idx = self._pick_camera()
-            static = self._static_for(it)
         self._dispatch(it, idx, static)
 
         outs = []
@@ -745,11 +584,7 @@ class Trainer:
             "active_sh_degree": self.active_sh_degree,
             "lambda_color": self.lambda_color,
             "opacity_reset_interval": self.opacity_reset_interval,
-            # Grown capacities and an engaged flat fallback survive resume.
-            "tile_cap": self.tile_cap,
-            "dup_factor": self.dup_factor,
-            "flat_stream": self.flat_stream,
-            "flat_auto": self._flat_auto,
+            **self.occupancy.meta(),
         })
         self.barrier()
 
@@ -776,17 +611,7 @@ class Trainer:
         self.active_sh_degree = meta["active_sh_degree"]
         self.lambda_color = meta["lambda_color"]
         self.opacity_reset_interval = meta["opacity_reset_interval"]
-        self.tile_cap = min(int(meta.get("tile_cap", self.tile_cap)),
-                            self.tile_cap_limit)
-        self.dup_factor = min(int(meta.get("dup_factor", self.dup_factor)),
-                              self.dup_factor_limit)
-        # An auto-engaged fallback resumes engaged where it is available;
-        # only an automatic switch may switch back.
-        if meta.get("flat_stream") and (self._flat_fallback_ok
-                                        or self.cfg.tpu.flat_stream):
-            self.flat_stream = True
-            self._flat_auto = (bool(meta.get("flat_auto", False))
-                               and not self.cfg.tpu.flat_stream)
+        self.occupancy.load_meta(meta)
         self.model = sort_layout(self.model)
         self._update_deform_bucket()
 

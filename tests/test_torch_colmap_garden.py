@@ -100,13 +100,14 @@ def test_resume_takes_the_start_occupancy(setup):
     resumes: the tile ceiling and dup_factor; the flat stream stays off on
     the CPU, which has no flat fallback."""
     _, tr, _ = setup
-    assert (tr.tile_cap, tr.dup_factor) == (OCCUPANCY["tile_cap"],
-                                            OCCUPANCY["dup_factor"])
-    assert tr.flat_stream is False
+    occ = tr.occupancy
+    assert (occ.tile_cap, occ.dup_factor) == (OCCUPANCY["tile_cap"],
+                                              OCCUPANCY["dup_factor"])
+    assert occ.flat_stream is False
 
 
 def _step(cfg, tr, sc, flat):
-    tr.flat_stream = flat
+    tr.occupancy.flat_stream = flat
     tr.active_sh_degree = 3
     static = tr.with_capacities(tr._static_for(IT))
     assert static.scene_type == "colmap" and static.single_camera
@@ -162,7 +163,7 @@ def test_colour_step_holds_to_the_reference(setup, flat):
 
 def test_flat_step_opens_its_span_and_records_occupancy(setup):
     _, tr, _ = setup
-    tr.flat_stream, tr.active_sh_degree = True, 3
+    tr.occupancy.flat_stream, tr.active_sh_degree = True, 3
     tr.drain()
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         tr.step()
@@ -177,7 +178,7 @@ def test_flat_step_opens_its_span_and_records_occupancy(setup):
 
 def test_dense_step_opens_no_flat_span(setup):
     _, tr, _ = setup
-    tr.flat_stream = False
+    tr.occupancy.flat_stream = False
     tr.drain()
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         tr.step()

@@ -14,8 +14,8 @@ On the same aligned stream (JAX-preprocessed Gaussians binned by the JAX
    block and a cotangent in [-1, 1], at tests/test_flat_stream.py's
    gradient tolerance, atol 3e-4, rtol 2e-3 (sums in another order, with
    suffix sums divided by q >= 0.01);
- - the gradients through ``composite_packed_flat`` (``FlatComposite``)
-   against ``jax.grad`` through the JAX ``composite_packed_flat`` (its
+ - the gradients through ``FlatComposite`` and ``unpack_outputs`` against
+   ``jax.grad`` through the JAX ``composite_packed_flat`` (its
    custom VJP ``_make_flat_vjp``), w.r.t. the stream and the bg map.
 
 Cases: dd / distribution gates on and off, flow on and off, 16x16 and
@@ -146,8 +146,8 @@ def test_flat_composite_grads_match_flat_vjp(case):
     bg_map = torch.tensor(d["bg"], requires_grad=True)
     cfg = d["tcfg"]
     bg_tiles = dense._bg_to_tiles(bg_map, start.shape[0], cfg)
-    o = flat.composite_packed_flat(feat, start, count, bg_tiles, origins, cfg,
-                                   has_flow)
+    o = dense.unpack_outputs(*flat.FlatComposite.apply(
+        feat, bg_tiles, start, count, origins, cfg, has_flow))
     assert not o.contrib_pixels.requires_grad
     total = (WEIGHTS["color"] * o.color.sum() + WEIGHTS["phasor"] * o.phasor.sum()
              + WEIGHTS["depth"] * o.depth.sum() + WEIGHTS["acc"] * o.acc.sum()

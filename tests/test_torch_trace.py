@@ -124,14 +124,14 @@ def test_replays_are_counted(trainer):
 
     trainer.drain()
     trainer._dispatch = dispatch
-    trainer.tile_cap = 128  # the tile overflows: grow and replay
+    trainer.occupancy.tile_cap = 128  # the tile overflows: grow and replay
     try:
         _, spans = profiled(lambda: [trainer.step(), trainer.step(),
                                      trainer.drain()])
     finally:
         del trainer._dispatch
     replayed = len(dispatched) - 2
-    assert replayed > 0 and trainer.tile_cap > 128
+    assert replayed > 0 and trainer.occupancy.tile_cap > 128
     assert [s[0] for s in spans].count("trainer.replay") == replayed
 
 

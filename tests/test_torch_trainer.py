@@ -3,7 +3,8 @@
 - The overflow state machine (grow-and-replay, the flat-stream fallback
   and its disengage, shrinking with hysteresis) with stubbed metrics: the
   cases of tests/test_flat_fallback.py and tests/test_shrink.py, run on
-  the port's Trainer.
+  the port's ``Occupancy`` (``train/occupancy.py``), alone or in a Trainer
+  whose occupancy was built for a CUDA device.
 - Grow-and-replay with real steps (the ``test_trainer_grows_and_replays``
   cases of tests/test_tile_overflow.py and tests/test_dup_overflow.py):
   a replayed run equals, bit for bit, a run that started with the grown
@@ -35,8 +36,9 @@ import torch
 from gftorf_tpu.config import Config as JConfig
 from gftorf_tpu.data.generate import write_dataset
 from gftorf_tpu.train.loop import Trainer as JTrainer
-from gftorf_tpu_torch.config import Config
+from gftorf_tpu_torch.config import Config, TpuParams
 from gftorf_tpu_torch.train.loop import Trainer
+from gftorf_tpu_torch.train.occupancy import Occupancy
 from gftorf_tpu_torch.train.step import METRIC_NAMES
 from gftorf_tpu_torch.utils.checkpoint import tree_leaves
 from gftorf_tpu_torch.weights import training_state_from_numpy
@@ -111,112 +113,131 @@ def _stub_pipeline(tr, tile_need):
     tr._dispatch = dispatch
 
 
+# A device with the flat kernels: the fallback's availability reads only
+# its type, so the CPU tests build an Occupancy for it.
+CUDA = torch.device("cuda")
+
+
+def cuda_trainer(make, **over):
+    """A CPU Trainer whose occupancy is the one it would have on CUDA."""
+    tr = make(**over)
+    tr.occupancy = Occupancy(tr.cfg.tpu, CUDA)
+    return tr
+
+
 def test_fallback_availability_follows_the_device(trainer_factory):
     # the CPU truncates like the JAX package on the CPU; CUDA has the
     # flat kernels (the counterpart of "a TPU with Pallas")
-    assert not trainer_factory()._flat_fallback_ok
+    tr = trainer_factory()
+    assert not tr.occupancy.flat_fallback_ok
+    assert Occupancy(tr.cfg.tpu, CUDA).flat_fallback_ok
+    truncate = TpuParams(tile_overflow_fallback="truncate")
+    assert not Occupancy(truncate, CUDA).flat_fallback_ok
 
 
 def test_flat_engages_at_dense_ceiling(trainer_factory):
-    tr = trainer_factory()
-    tr._flat_fallback_ok = True
-    tr.tile_cap = tr.tile_cap_limit = 256
+    tr = cuda_trainer(trainer_factory, max_per_tile=256, max_per_tile_limit=256)
     _stub_pipeline(tr, tile_need=4000)
     tr.iteration = 1
     tr._dispatch(1, 0, tr._static_for(1))
     out = tr._resolve_one()
-    assert tr.flat_stream and tr._flat_auto
+    assert tr.occupancy.flat_stream and tr.occupancy.flat_auto
     assert out["tile_overflow"] == 0
     st = tr._static_for(2)
     assert st.config_tof.flat_stream and st.config_color.flat_stream
+
+
+def engage_flat(occ):
+    """Engage the automatic fallback as a render past the dense ceiling
+    does."""
+    assert occ.tile_cap == occ.tile_cap_limit
+    assert occ.grow(_metrics(tile_overflow=1.0, tile_max=4000.0), 4096) == [
+        f"flat_stream=True (deepest tile 4000 exceeds the dense ceiling "
+        f"{occ.tile_cap_limit}; exact stream fallback)"]
+    assert occ.flat_stream and occ.flat_auto
 
 
 @pytest.mark.parametrize("need,engaged", [(100, False), (700, True)])
 def test_flat_disengage_hysteresis(trainer_factory, need, engaged):
     """The scene thins (need 100): back to dense; need just under the
     ceiling (no 1.5x headroom): stays flat, no flapping."""
-    tr = trainer_factory()
-    tr._flat_fallback_ok = True
-    tr.tile_cap = tr.tile_cap_limit = 1280
-    tr.flat_stream = tr._flat_auto = True
+    tr = cuda_trainer(trainer_factory, max_per_tile=1280,
+                      max_per_tile_limit=1280)
+    engage_flat(tr.occupancy)
     _stub_pipeline(tr, tile_need=need)
     for it in (1, 2):
         tr.iteration = it
         tr._dispatch(it, 0, tr._static_for(it))
         tr._resolve_one()
-    assert tr.flat_stream == engaged
+    assert tr.occupancy.flat_stream == engaged
     if not engaged:
-        assert not tr._flat_auto and tr.tile_cap == tr._tile_cap_need(need)
+        assert not tr.occupancy.flat_auto
+        assert tr.occupancy.tile_cap == 256  # 100*1.35 -> 135 -> 256
         assert not tr._static_for(3).config_tof.flat_stream
 
 
 def test_truncate_optin_warns(trainer_factory, capsys):
-    tr = trainer_factory(tile_overflow_fallback="truncate")
-    assert not tr._flat_fallback_ok
-    tr.tile_cap = tr.tile_cap_limit = 256
+    tr = cuda_trainer(trainer_factory, tile_overflow_fallback="truncate",
+                      max_per_tile=256, max_per_tile_limit=256)
+    assert not tr.occupancy.flat_fallback_ok
     _stub_pipeline(tr, tile_need=4000)
     tr.iteration = 1
     tr._dispatch(1, 0, tr._static_for(1))
     out = tr._resolve_one()
-    assert not tr.flat_stream and out["tile_overflow"] > 0
+    assert not tr.occupancy.flat_stream and out["tile_overflow"] > 0
     assert "WARNING: tile overflow" in capsys.readouterr().out
 
 
 def test_grow_below_ceiling(trainer_factory):
-    tr = trainer_factory()
-    tr._flat_fallback_ok = True
-    tr.tile_cap, tr.tile_cap_limit = 128, 1024
+    tr = cuda_trainer(trainer_factory, max_per_tile=128,
+                      max_per_tile_limit=1024)
     _stub_pipeline(tr, tile_need=300)
     tr.iteration = 1
     tr._dispatch(1, 0, tr._static_for(1))
     out = tr._resolve_one()
-    assert not tr.flat_stream and out["tile_overflow"] == 0
-    assert tr.tile_cap == tr._tile_cap_need(300)
+    assert not tr.occupancy.flat_stream and out["tile_overflow"] == 0
+    assert tr.occupancy.tile_cap == 512  # 300*1.35 -> 405 -> 512
 
 
 def test_checkpoint_roundtrips_flat_state(trainer_factory, tmp_path):
-    tr = trainer_factory()
-    tr._flat_fallback_ok = True
-    tr.flat_stream = tr._flat_auto = True
+    tr = cuda_trainer(trainer_factory, max_per_tile=256,
+                      max_per_tile_limit=256)
+    engage_flat(tr.occupancy)
     tr.iteration = 7
     path = str(tmp_path / "ck.npz")
     tr.save_checkpoint(path)
-    tr2 = trainer_factory()
-    tr2._flat_fallback_ok = True
+    tr2 = cuda_trainer(trainer_factory)
     tr2.load_checkpoint(path)
-    assert tr2.flat_stream and tr2._flat_auto and tr2.iteration == 7
+    assert tr2.occupancy.flat_stream and tr2.occupancy.flat_auto
+    assert tr2.iteration == 7
     tr3 = trainer_factory(tile_overflow_fallback="truncate")
     tr3.load_checkpoint(path)
-    assert not tr3.flat_stream
+    assert not tr3.occupancy.flat_stream
 
 
 # ------------------------------------------ tests/test_shrink.py, stubbed
 
 
-def make_shrink_trainer(tile_cap=2048, dup_factor=24, render_bucket=0,
-                        capacity=4096, window=4, flat_stream=False):
-    t = Trainer.__new__(Trainer)
-    t.flat_stream = flat_stream
-    t._flat_auto = False
-    t._flat_fallback_ok = False
-    t.tile_cap_limit = max(tile_cap, 16384)
-    t.shrink_window = window
-    t.tile_cap_floor = 256
-    t.dup_factor_floor = 2
-    t._occ_steps = t._occ_tile_max = t._occ_rendered_max = 0
-    t.tile_cap = tile_cap
-    t.dup_factor = dup_factor
-    t.render_bucket = render_bucket
-    t.iteration = 1
-    t.model = types.SimpleNamespace(
-        aux=types.SimpleNamespace(alive=torch.zeros((capacity,), dtype=torch.bool)))
-    return t
+def make_occupancy(tile_cap=2048, dup_factor=24, window=4, flat_stream=False):
+    return Occupancy(TpuParams(
+        max_per_tile=tile_cap, max_per_tile_limit=max(tile_cap, 16384),
+        max_per_tile_floor=256, dup_factor=dup_factor, dup_factor_floor=2,
+        shrink_window=window, flat_stream=flat_stream), torch.device("cpu"))
 
 
-def feed(t, tile_max, rendered_max, n):
+def trainer_rows(render_bucket, capacity):
+    """``Trainer.render_rows`` of a Trainer at this bucket and capacity:
+    the rows it hands the occupancy."""
+    alive = torch.zeros((capacity,), dtype=torch.bool)
+    return Trainer.render_rows.fget(types.SimpleNamespace(
+        render_bucket=render_bucket,
+        model=types.SimpleNamespace(aux=types.SimpleNamespace(alive=alive))))
+
+
+def feed(occ, tile_max, rendered_max, n, rows):
     for _ in range(n):
-        t._note_occupancy({"tile_max": float(tile_max),
-                           "rendered_max": float(rendered_max)})
+        occ.note(1, {"tile_max": float(tile_max),
+                     "rendered_max": float(rendered_max)}, rows)
 
 
 @pytest.mark.parametrize("kw,feeds,want", [
@@ -236,18 +257,24 @@ def feed(t, tile_max, rendered_max, n):
     (dict(flat_stream=True), [(300, 8000, 4)], (2048, 3)),
 ])
 def test_shrink(kw, feeds, want):
-    t = make_shrink_trainer(**kw)
+    kw = dict(kw)
+    bucket, capacity = kw.pop("render_bucket", 0), kw.pop("capacity", 4096)
+    occ = make_occupancy(**kw)
+    rows = trainer_rows(bucket, capacity)
     for tile_max, rendered_max, n in feeds:
-        feed(t, tile_max, rendered_max, n)
-    assert (t.tile_cap, t.dup_factor) == want
+        feed(occ, tile_max, rendered_max, n, rows)
+    assert (occ.tile_cap, occ.dup_factor) == want
     if kw.get("window", 4) and not kw.get("flat_stream"):
-        assert t._occ_steps == 0
+        assert occ._steps == 0
 
 
 def test_growth_sizes_to_need():
-    t = make_shrink_trainer(tile_cap=1024, dup_factor=4)
-    assert t._tile_cap_need(1243) == 1792  # 1243*1.35 -> 1679 -> 1792
-    assert t._dup_factor_need(324046 // 8) == 14  # ceil(1.35*40505/4096)
+    occ = make_occupancy(tile_cap=1024, dup_factor=4)
+    grew = occ.grow(_metrics(tile_overflow=1.0, tile_max=1243.0,
+                             dup_overflow=1.0, rendered_max=float(324046 // 8)), 4096)
+    assert occ.tile_cap == 1792  # 1243*1.35 -> 1679 -> 1792
+    assert occ.dup_factor == 14  # ceil(1.35*40505/4096)
+    assert grew == ["max_per_tile=1792 (dropped 1 instances)", "dup_factor=14"]
 
 
 # ------------------------------------------- grow-and-replay, real steps
@@ -265,21 +292,21 @@ def test_trainer_grows_and_replays(trainer_factory, tmp_path, over, grown):
     the grown capacity survives a checkpoint."""
     kw = dict(num_points=3000, iterations=6, shrink_window=0, **over)
     tr = trainer_factory(**kw)
-    start = getattr(tr, grown)
+    start = getattr(tr.occupancy, grown)
     outs = run(tr, 6)
     assert [o["iteration"] for o in outs] == list(range(1, 7))
     assert all(np.isfinite(o["loss"]) for o in outs)
-    assert getattr(tr, grown) > start
+    assert getattr(tr.occupancy, grown) > start
     assert all(o["tile_overflow"] == 0 and not o["dup_overflow"] for o in outs)
     cap_key = "max_per_tile" if grown == "tile_cap" else "dup_factor"
-    tr2 = trainer_factory(**dict(kw, **{cap_key: getattr(tr, grown)}))
+    tr2 = trainer_factory(**dict(kw, **{cap_key: getattr(tr.occupancy, grown)}))
     outs2 = run(tr2, 6)
     assert [o["loss"] for o in outs2] == [o["loss"] for o in outs]
     ck = str(tmp_path / "ck.npz")
     tr.save_checkpoint(ck)
     tr3 = trainer_factory(**kw)
     tr3.load_checkpoint(ck)
-    assert getattr(tr3, grown) == getattr(tr, grown)
+    assert getattr(tr3.occupancy, grown) == getattr(tr.occupancy, grown)
 
 
 def test_runs_are_bitwise_repeatable_with_random_bg(trainer_factory):
@@ -394,22 +421,31 @@ def test_trainer_state_matches_jax(parity):
 def test_checkpoints_resume_across_packages(parity, tmp_path):
     tr_j, tr_t, _, _, cfg = parity
     meta_keys = ("iteration", "active_sh_degree", "lambda_color",
-                 "opacity_reset_interval", "tile_cap", "dup_factor",
-                 "flat_stream", "_flat_auto")
+                 "opacity_reset_interval")
+    occ_keys = ("tile_cap", "dup_factor", "flat_stream", "flat_auto")
+
+    def jax_meta(tr):
+        return ([getattr(tr, k) for k in meta_keys]
+                + [tr.tile_cap, tr.dup_factor, tr.flat_stream, tr._flat_auto])
+
+    def port_meta(tr):
+        return ([getattr(tr, k) for k in meta_keys]
+                + [getattr(tr.occupancy, k) for k in occ_keys])
+
     # JAX -> port
     pj = str(tmp_path / "jax.npz")
     tr_j.save_checkpoint(pj)
     into_t = Trainer(Config.from_dict(cfg), startup_artifacts=False, device="cpu")
     into_t.load_checkpoint(pj)
     assert_states_close(into_t, tr_j, exact=True)
-    assert [getattr(into_t, k) for k in meta_keys] == [getattr(tr_j, k) for k in meta_keys]
+    assert port_meta(into_t) == jax_meta(tr_j)
     # port -> JAX
     pt = str(tmp_path / "port.npz")
     tr_t.save_checkpoint(pt)
     into_j = JTrainer(JConfig.from_dict(cfg), startup_artifacts=False)
     into_j.load_checkpoint(pt)
     assert_states_close(tr_t, into_j, exact=True)
-    assert [getattr(into_j, k) for k in meta_keys] == [getattr(tr_t, k) for k in meta_keys]
+    assert jax_meta(into_j) == port_meta(tr_t)
     # and the port resumes its own checkpoint to an equal state
     again = Trainer(Config.from_dict(cfg), startup_artifacts=False, device="cpu")
     again.load_checkpoint(pt)

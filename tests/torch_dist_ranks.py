@@ -216,7 +216,7 @@ def job_grow(payload):
     cfg = payload["cfg"]
     tr = _trainer(cfg)
     outs = _run(tr, cfg["iterations"])
-    grown = (tr.tile_cap, tr.dup_factor)
+    grown = (tr.occupancy.tile_cap, tr.occupancy.dup_factor)
     again = _trainer(dict(cfg, max_per_tile=grown[0], dup_factor=grown[1]))
     outs2 = _run(again, cfg["iterations"])
     try:
